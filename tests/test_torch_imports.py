@@ -1,0 +1,49 @@
+"""Import boundary of the port: no module of sldm_gnn_tpu_torch and not
+chip_smoke.py may import JAX, flax, pandas, click or the JAX package (the
+card's machine has none of them). Checked on the source (AST), since the
+test process itself has JAX loaded."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "pandas", "click", "sldm_gnn_tpu"}
+PORT_FILES = sorted((ROOT / "sldm_gnn_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            roots |= {a.value.split(".")[0] for a in node.args
+                      if isinstance(a, ast.Constant) and isinstance(a.value, str)}
+    return roots
+
+
+def test_port_files_exist():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert "sldm_gnn_tpu_torch/ops/gru_cuda.py" in names
+    assert "chip_smoke.py" in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_port_imports_no_jax_side_module(path):
+    bad = _imported_roots(path) & FORBIDDEN
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_chip_smoke_without_a_card_fails_and_prints_no_result(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120, env=env)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
