@@ -4,16 +4,29 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``sldm_gnn_tpu_torch/csrc`` with
-``nvcc``, holds each kernel against its plain PyTorch version on the card,
-times kernel, plain version and one library call at the flagship shapes,
-then serves a stream through the port's ``InferenceEngine`` at the
-flagship width (``bench_flagship.py``'s GruSage: 100 frames, GRU hidden
-96, map on with 1000 baked segments, ``gru_impl='pallas'``,
-``knn_impl='pallas'``) with random weights from a seed. It prints its
-findings, a ``{"kernels": [...]}`` line, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``. Any failed check raises, and
-the exit code is not 0. Without a card it exits with code 2 and prints no
-result. It needs no file outside the repository and no network.
+``nvcc`` (one process per source, in parallel), holds each kernel against
+its plain PyTorch version on the card, and times kernel, plain version
+and one library call at the flagship shapes. Then it drives the port's two
+paths at the flagship width (``bench_flagship.py``'s GruSage: 100 frames,
+GRU hidden 96, FC1 96, SAGE 96x2, FC2 32, 4 labels, top-5 map attention,
+``knn_impl='pallas'``), with every launch count set to 0 just before a
+path and read just after it:
+
+  * serving: a 120-frame wire stream through ``InferenceEngine``, from a
+    snapshot with random weights and 1000 baked map segments
+    (``gru_impl='pallas'``);
+  * training: ``build_step_fns`` on 2048 synthetic graphs of 8-11
+    vehicles with a live 1000-segment map, once with ``gru_impl=
+    'pallas_sg'`` and once with ``'pallas'``: one step's gradients through
+    the kernels against the same step through the plain versions, then 20
+    steps with dropout 0.25; the trained ``'pallas_sg'`` model is saved
+    with baked map embeddings and serves the same stream.
+
+It prints its findings, a ``{"kernels": [...]}`` line, the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
+raises, and the exit code is not 0. Without a card it exits with code 2
+and prints no result. It needs no file outside the repository and no
+network.
 """
 
 from __future__ import annotations
@@ -39,6 +52,9 @@ FEATURES = 6
 PACKS = 2048  # bench_flagship.py at FLAG_BATCH=2048: ~20k GRU rows
 SEGMENTS = 1000
 K = 5
+LABELS = 4
+TRAIN_STEPS = 20
+MAP_FEATS = 9
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
@@ -55,6 +71,26 @@ PEAK_F32_FLOP_S = 67e12
 #  and distances agree to one f32 ulp.
 GRU_ATOL = 3e-2
 KNN_RTOL = 1.2e-7
+#  GRU backward: both round dxp/dhp to bf16 before every product and sum
+#  exact bf16 products in f32, in different orders; an order difference
+#  can flip one bf16 rounding of a dxp/dhp value. 1e-2 * max|g| per output
+#  is the JAX package's own bound for its plain XLA twin.
+GRAD_RTOL = 1e-2
+#  store-gates forward: its gates against the same gates recomputed in plain
+#  PyTorch from the kernel's own hs, within one bf16 ulp of the larger
+#  value; the ulp is floored at 2^-20, the f32 rounding noise of a gate's
+#  pre-activation of size ~8, which decides the rounding of a value that
+#  cancels to near zero (tanh of a near-zero sum).
+GATE_ULP_FLOOR = 2.0 ** -20
+#  training step through the kernels vs through the plain versions on the
+#  card: the JAX package's whole-model contract for its GRU kernels
+#  (tests/test_gru_pallas.py:236-246), per parameter rtol 5e-2 and atol
+#  5e-2 * (max|g| + 1e-6). The 1e-6 floor matters where the exact gradient
+#  vanishes: the attention's softmax over the K neighbours makes the
+#  gradient of its score bias exactly zero and that of the distance MLP's
+#  first layer nearly so, leaving only rounding noise to compare.
+STEP_GRAD_TOL = 5e-2
+STEP_GRAD_FLOOR = 1e-6
 #  serving scores (sigmoid of the logits) of the kernel engine against the
 #  same engine on the plain versions, and against the f32 scan/topk engine
 SCORE_ATOL = 3e-2
@@ -87,6 +123,18 @@ def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gru_fwd_cost(n: int, d: int, h: int) -> tuple[float, float]:
+    """(bytes, operations) of the GRU forward's h_last: x read once, both
+    weights and biases, h_last written; both projections every frame."""
+    nbytes = n * FRAMES * d * 4 + 2 * 3 * h * (d + h) + 2 * 3 * h * 4 + n * h * 4
+    return nbytes, 2.0 * n * FRAMES * 3 * h * (d + h)
+
+
+def knn_cost(v: int) -> tuple[float, float]:
+    nbytes = v * 2 * 4 + SEGMENTS * 2 * 4 + v * K * 8
+    return nbytes, 5.0 * v * SEGMENTS
 
 
 def flagship_rows(rng: np.random.Generator) -> int:
@@ -156,8 +204,13 @@ def check_gru(gru_cuda, gen, rng, dev) -> dict:
     ms, _ = timed(lambda: gru_cuda.gru_fwd(x, *w), iters=20)
     xs = x[:32].contiguous()  # a served window: 32 node rows (power-of-two padding)
     serve_ms, serve_host = timed(lambda: gru_cuda.gru_fwd(xs, *w), iters=200)
+    serve_bound_ms, serve_bound_by = bound(*gru_fwd_cost(32, FEATURES, HIDDEN), PEAK_BF16_FLOP_S)
+    lib32 = torch.nn.GRU(FEATURES, HIDDEN, batch_first=True).to(dev)
+    with torch.inference_mode():
+        serve_library_ms, _ = timed(lambda: lib32(xs), iters=200)
     log(f"gru_fwd at N=32 (one served window): {serve_ms:.4f} ms per call on the card, "
-        f"{serve_host:.4f} ms to issue it on the host")
+        f"{serve_host:.4f} ms to issue it on the host; bound {serve_bound_ms:.6f} ms "
+        f"({serve_bound_by}); nn.GRU f32 at N=32 {serve_library_ms:.4f} ms")
     plain_ms, _ = timed(lambda: gru_cuda.gru_fwd_plain(x, *w), iters=3, warmup=1)
     # yardstick: cuDNN's GRU in f32 (TF32 off); the same call in bf16 is
     # printed beside it
@@ -167,17 +220,15 @@ def check_gru(gru_cuda, gen, rng, dev) -> dict:
     with torch.inference_mode():
         library_ms, _ = timed(lambda: lib(x), iters=20)
         library_bf16_ms, _ = timed(lambda: lib_bf16(xb), iters=20)
-    flops = 2.0 * n * FRAMES * 3 * HIDDEN * (FEATURES + HIDDEN)
-    nbytes = (x.numel() * 4 + 2 * 3 * HIDDEN * (FEATURES + HIDDEN)
-              + 2 * 3 * HIDDEN * 4 + n * HIDDEN * 4)
-    bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOP_S)
+    bound_ms, bound_by = bound(*gru_fwd_cost(n, FEATURES, HIDDEN), PEAK_BF16_FLOP_S)
     log(f"gru_fwd timing N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"nn.GRU f32 {library_ms:.4f} ms (bf16 {library_bf16_ms:.4f} ms), bound {bound_ms:.4f} ms ({bound_by})")
     return dict(name="gru_fwd", route="cuda", source="sldm_gnn_tpu_torch/csrc/gru_fwd.cu",
                 replaces="sldm_gnn_tpu/ops/gru_pallas.py:407",
                 shape=f"N={n} T={FRAMES} D={FEATURES} H={HIDDEN} h_last",
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, serve_shape_ms=serve_ms)
+                bound_by=bound_by, library_ms=library_ms, serve_shape_ms=serve_ms,
+                serve_shape_bound_ms=serve_bound_ms, serve_shape_library_ms=serve_library_ms)
 
 
 def check_knn(knn_ops, gen, rng, dev) -> dict:
@@ -216,21 +267,178 @@ def check_knn(knn_ops, gen, rng, dev) -> dict:
     log(f"knn_topk V={v}: host {host:.4f} ms to issue one call")
     ps = pts[:32].contiguous()
     serve_ms, serve_host = timed(lambda: knn_ops.knn_topk_fused(ps, cts, K), iters=200)
+    serve_bound_ms, serve_bound_by = bound(*knn_cost(32), PEAK_F32_FLOP_S)
+    serve_library_ms, _ = timed(
+        lambda: torch.topk(torch.cdist(ps, cts), K, dim=1, largest=False), iters=200)
     log(f"knn_topk at V=32 (one served window): {serve_ms:.4f} ms per call on the card, "
-        f"{serve_host:.4f} ms to issue it on the host")
+        f"{serve_host:.4f} ms to issue it on the host; bound {serve_bound_ms:.7f} ms "
+        f"({serve_bound_by}); cdist+topk at V=32 {serve_library_ms:.4f} ms")
     plain_ms, _ = timed(lambda: knn_ops.knn_topk_plain(pts, cts, K), iters=10)
     library_ms, _ = timed(lambda: torch.topk(torch.cdist(pts, cts), K, dim=1, largest=False),
                          iters=50)
-    flops = 5.0 * v * SEGMENTS
-    nbytes = v * 2 * 4 + SEGMENTS * 2 * 4 + v * K * 8
-    bound_ms, bound_by = bound(nbytes, flops, PEAK_F32_FLOP_S)
+    bound_ms, bound_by = bound(*knn_cost(v), PEAK_F32_FLOP_S)
     log(f"knn_topk timing V={v} S={SEGMENTS}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"cdist+topk {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
     return dict(name="knn_topk", route="cuda", source="sldm_gnn_tpu_torch/csrc/knn_topk.cu",
                 replaces="sldm_gnn_tpu/ops/knn_pallas.py:123",
                 shape=f"V={v} S={SEGMENTS} k={K}",
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, serve_shape_ms=serve_ms)
+                bound_by=bound_by, library_ms=library_ms, serve_shape_ms=serve_ms,
+                serve_shape_bound_ms=serve_bound_ms, serve_shape_library_ms=serve_library_ms)
+
+
+def gates_from_hs(gru_cuda, x, hs, w_ih, b_ih, w_hh, b_hh) -> torch.Tensor:
+    """Plain PyTorch gates r|z|n|hn [T, N, 4H] bf16 of every frame, from
+    hs[t-1] (the forward's own carry), as the store-gates forward forms them."""
+    xb = x.to(torch.bfloat16).float().transpose(0, 1)
+    hprev = torch.cat([torch.zeros_like(hs[:1]), hs[:-1]]).float()
+    xp = torch.matmul(xb, w_ih.to(torch.bfloat16).float()) + b_ih
+    hp = torch.matmul(hprev, w_hh.to(torch.bfloat16).float()) + b_hh
+    return torch.cat(gru_cuda._gates_math(xp, hp), dim=-1).to(torch.bfloat16)
+
+
+def beyond_one_ulp(a: torch.Tensor, b: torch.Tensor) -> tuple[int, float]:
+    """(values of a and b further apart than one bf16 ulp of the larger,
+    floored at GATE_ULP_FLOOR; max abs difference)."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    ulp = torch.ldexp(torch.ones_like(a), e - 8).clamp_min(GATE_ULP_FLOOR)
+    d = (a - b).abs()
+    return int((d > ulp).sum().item()), d.max().item()
+
+
+def grad_errors(got, want) -> list[float]:
+    """max|got - want| / max|want| of each output that is not None."""
+    return [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            for a, b in zip(got, want) if b is not None]
+
+
+def check_gru_training_kernels(gru_cuda, gen, dev) -> list[dict]:
+    """The store-gates forward and both backwards at the flagship shape
+    (h_last cotangent, no dx: GruSage's use), with dx and the per-frame
+    cotangent at a smaller N, and at a ragged N; bit-stability across two
+    launches; times against their plain versions and cuDNN's GRU."""
+    n = flagship_rows(np.random.default_rng(SEED))  # the GRU rows of check_gru
+    x = torch.randn((n, FRAMES, FEATURES), generator=gen).to(dev)
+    w = gru_weights(gen, FEATURES, HIDDEN, dev)
+    g = torch.randn((n, HIDDEN), generator=gen).to(dev)
+
+    hs, gates = gru_cuda.gru_fwd_sg(x, *w)
+    hs_v2 = gru_cuda.gru_fwd(x, *w, seq=True)
+    hs_p, _ = gru_cuda.gru_fwd_sg_plain(x, *w)
+    torch.cuda.synchronize()
+    if not torch.equal(hs, hs_v2):
+        raise AssertionError("gru_fwd_sg's hs differs from gru_fwd's (must be bit-equal)")
+    e_hs = (hs.float() - hs_p.float()).abs().max().item()
+    off, e_gates = beyond_one_ulp(gates, gates_from_hs(gru_cuda, x, hs, *w))
+    hs2, gates2 = gru_cuda.gru_fwd_sg(x, *w)
+    stable = torch.equal(hs, hs2) and torch.equal(gates, gates2)
+    log(f"gru_fwd_sg N={n}: hs bit-equal to gru_fwd's; hs vs plain max_abs_err {e_hs:.3e} "
+        f"(tol {GRU_ATOL}); gates vs plain from the same hs: {off} of {gates.numel()} "
+        f"beyond one bf16 ulp, max_abs {e_gates:.3e}; two launches bit-equal {stable}")
+    if e_hs > GRU_ATOL or off or not stable:
+        raise AssertionError("gru_fwd_sg kernel disagrees with its plain version")
+    del hs_v2, hs_p, hs2, gates2
+
+    def compare(name, kernel, plain, shape):
+        got = kernel()
+        want = plain()
+        again = kernel()
+        torch.cuda.synchronize()
+        errs = grad_errors(got, want)
+        stable = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+        abs_err = max((a - b).abs().max().item() for a, b in zip(got, want) if b is not None)
+        log(f"{name} {shape}: max|err|/max|g| per output {['%.2e' % e for e in errs]} "
+            f"(tol {GRAD_RTOL}); two launches bit-equal {stable}")
+        if max(errs) > GRAD_RTOL or not stable or not all(
+                torch.isfinite(a).all() for a in got if a is not None):
+            raise AssertionError(f"{name} kernel disagrees with its plain version ({shape})")
+        return abs_err
+
+    shape = f"N={n} T={FRAMES} h_last, no dx"
+    err_bwd = compare("gru_bwd", lambda: gru_cuda.gru_bwd(x, hs, *w, g, with_dx=False),
+                      lambda: gru_cuda.gru_bwd_plain(x, hs, *w, g, with_dx=False), shape)
+    err_sg = compare(
+        "gru_bwd_sg", lambda: gru_cuda.gru_bwd_sg(x, hs, gates, w[0], w[2], g, with_dx=False),
+        lambda: gru_cuda.gru_bwd_sg_plain(x, hs, gates, w[0], w[2], g, with_dx=False), shape)
+    for m, seq in ((2000, True), (37, False), (37, True)):
+        xs = x[:m].contiguous()
+        hs_s, gates_s = gru_cuda.gru_fwd_sg(xs, *w)
+        gs = torch.randn((m, FRAMES, HIDDEN) if seq else (m, HIDDEN), generator=gen).to(dev)
+        shape = f"N={m} {'per-frame' if seq else 'h_last'} cotangent, with dx"
+        compare("gru_bwd", lambda: gru_cuda.gru_bwd(xs, hs_s, *w, gs, seq_cot=seq),
+                lambda: gru_cuda.gru_bwd_plain(xs, hs_s, *w, gs, seq_cot=seq), shape)
+        compare("gru_bwd_sg",
+                lambda: gru_cuda.gru_bwd_sg(xs, hs_s, gates_s, w[0], w[2], gs, seq_cot=seq),
+                lambda: gru_cuda.gru_bwd_sg_plain(xs, hs_s, gates_s, w[0], w[2], gs,
+                                                  seq_cot=seq), shape)
+
+    # times at the flagship shape
+    fwd_ms, fwd_host = timed(lambda: gru_cuda.gru_fwd_sg(x, *w), iters=10)
+    bwd_ms, bwd_host = timed(lambda: gru_cuda.gru_bwd(x, hs, *w, g, with_dx=False), iters=5)
+    sg_ms, sg_host = timed(
+        lambda: gru_cuda.gru_bwd_sg(x, hs, gates, w[0], w[2], g, with_dx=False), iters=5)
+    fwd_plain, _ = timed(lambda: gru_cuda.gru_fwd_sg_plain(x, *w), iters=2, warmup=1)
+    bwd_plain, _ = timed(lambda: gru_cuda.gru_bwd_plain(x, hs, *w, g, with_dx=False),
+                         iters=2, warmup=1)
+    sg_plain, _ = timed(lambda: gru_cuda.gru_bwd_sg_plain(x, hs, gates, w[0], w[2], g,
+                                                          with_dx=False), iters=2, warmup=1)
+    # yardstick: cuDNN's GRU (f32 with TF32 off, and bf16) at the same shape:
+    # its training forward, and its backward as (forward + backward) minus
+    # that forward, for the weight gradients of h_last's cotangent
+    lib = {}
+    for dt in (torch.float32, torch.bfloat16):
+        gru = torch.nn.GRU(FEATURES, HIDDEN, batch_first=True).to(dev, dt)
+        xd, gd = x.to(dt), g.to(dt)[None]
+        params = list(gru.parameters())
+        f_ms, _ = timed(lambda: gru(xd), iters=10)
+
+        def fwd_bwd():
+            _, h_n = gru(xd)
+            torch.autograd.grad(h_n, params, gd)
+
+        fb_ms, _ = timed(fwd_bwd, iters=10)
+        lib[dt] = (f_ms, fb_ms - f_ms)
+    H3 = 3 * HIDDEN
+    xb, hsb, gb = x.numel() * 4, hs.numel() * 2, gates.numel() * 2
+    wb = 2 * H3 * (FEATURES + HIDDEN) + 2 * H3 * 4
+    outb = (FEATURES + HIDDEN + 2) * H3 * 4
+    rows = n * FRAMES
+    fwd_bound = bound(xb + wb + hsb + gb, 2.0 * rows * H3 * (FEATURES + HIDDEN),
+                      PEAK_BF16_FLOP_S)
+    # v2: the recomputed projections, dh, dW_hh + db_hh, dW_ih + db_ih
+    bwd_flops = 2.0 * rows * H3 * ((FEATURES + HIDDEN) + HIDDEN + (HIDDEN + 1)
+                                   + (FEATURES + 1))
+    bwd_bound = bound(xb + hsb + g.numel() * 4 + wb + outb, bwd_flops, PEAK_BF16_FLOP_S)
+    sg_flops = 2.0 * rows * H3 * (HIDDEN + (HIDDEN + 1) + (FEATURES + 1))
+    sg_bound = bound(xb + hsb + gb + g.numel() * 4 + wb + outb, sg_flops, PEAK_BF16_FLOP_S)
+    (lf32, lb32), (lf16, lb16) = lib[torch.float32], lib[torch.bfloat16]
+    log(f"gru_fwd_sg timing N={n}: kernel {fwd_ms:.4f} ms (host issue {fwd_host:.4f}), plain "
+        f"{fwd_plain:.4f} ms, cuDNN training forward f32 {lf32:.4f} ms (bf16 {lf16:.4f}), "
+        f"bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
+    log(f"gru_bwd timing N={n}: kernel {bwd_ms:.4f} ms (host issue {bwd_host:.4f}), plain "
+        f"{bwd_plain:.4f} ms, cuDNN backward f32 {lb32:.4f} ms (bf16 {lb16:.4f}), bound "
+        f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}, {bwd_flops / 1e9:.1f} GFLOP)")
+    log(f"gru_bwd_sg timing N={n}: kernel {sg_ms:.4f} ms (host issue {sg_host:.4f}), plain "
+        f"{sg_plain:.4f} ms, cuDNN backward f32 {lb32:.4f} ms (bf16 {lb16:.4f}), bound "
+        f"{sg_bound[0]:.4f} ms ({sg_bound[1]}, {sg_flops / 1e9:.1f} GFLOP)")
+    common = dict(route="cuda", path="train")
+    return [
+        dict(name="gru_fwd_sg", source="sldm_gnn_tpu_torch/csrc/gru_fwd.cu",
+             replaces="sldm_gnn_tpu/ops/gru_pallas.py:766", shape=f"N={n} T={FRAMES} hs+gates",
+             max_abs_err=max(e_hs, e_gates), ms=fwd_ms, plain_ms=fwd_plain,
+             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=lf32, **common),
+        dict(name="gru_bwd", source="sldm_gnn_tpu_torch/csrc/gru_bwd.cu",
+             replaces="sldm_gnn_tpu/ops/gru_pallas.py:440",
+             shape=f"N={n} T={FRAMES} h_last, no dx", max_abs_err=err_bwd, ms=bwd_ms,
+             plain_ms=bwd_plain, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+             library_ms=lb32, **common),
+        dict(name="gru_bwd_sg", source="sldm_gnn_tpu_torch/csrc/gru_bwd_sg.cu",
+             replaces="sldm_gnn_tpu/ops/gru_pallas.py:805",
+             shape=f"N={n} T={FRAMES} h_last, no dx", max_abs_err=err_sg, ms=sg_ms,
+             plain_ms=sg_plain, bound_ms=sg_bound[0], bound_by=sg_bound[1],
+             library_ms=lb32, **common),
+    ]
 
 
 def write_snapshot(path: Path, gru_impl: str, knn_impl: str) -> None:
@@ -362,6 +570,207 @@ def check_serving(gru_cuda, knn_ops, tmp: Path, dev) -> dict:
     return launches
 
 
+def flagship_config(gru_impl: str, dropout: float | None):
+    from sldm_gnn_tpu_torch.models.grusage import GruSageConfig
+
+    return GruSageConfig(
+        frames_num=FRAMES, gru_hidden_size=HIDDEN, fc1dims=(HIDDEN,),
+        sage_hidden_dims=(HIDDEN, HIDDEN), fc2dims=(32,), out_dim=LABELS, emb_dim=8,
+        dropout=dropout, negative_slope=0.1, map_included=True, map_attention_topk=K,
+        gru_impl=gru_impl, knn_impl="pallas")
+
+
+def synth_training_data(dev):
+    """bench_flagship.py's recipe: PACKS graphs of 8-11 fully connected
+    vehicles with Bernoulli(0.3) labels, and a live map of SEGMENTS segments
+    (9 features, z-scored; 4 random edges a segment; centroids ~ N(0, 100))."""
+    from sldm_gnn_tpu_torch.graph.batching import compute_batch_dims, pad_and_batch
+    from sldm_gnn_tpu_torch.graph.containers import GraphArrays
+    from sldm_gnn_tpu_torch.models.map_modules import MapData, map_zscore_norm
+
+    rng = np.random.default_rng(SEED)
+    graphs = []
+    for _ in range(PACKS):
+        v = int(rng.integers(8, 12))
+        x = rng.standard_normal((v, FRAMES, FEATURES)).astype(np.float32)
+        x[:, :, 5] = 1.0
+        src, dst = np.meshgrid(np.arange(v), np.arange(v))
+        m = src != dst
+        graphs.append(GraphArrays(
+            x=x, xsttype=rng.integers(0, 10, v).astype(np.int32),
+            xdims=rng.uniform(1.5, 5.0, (v, 2)).astype(np.float32),
+            edge_index=np.stack([src[m], dst[m]]).astype(np.int32),
+            edge_attr=np.zeros((int(m.sum()), 4), np.float32),
+            y=(rng.random(LABELS) < 0.3).astype(np.float32)))
+    batch = pad_and_batch(graphs, compute_batch_dims(graphs, PACKS, LABELS)).to(dev)
+    feats = torch.from_numpy(rng.standard_normal((SEGMENTS, MAP_FEATS)).astype(np.float32))
+    md = MapData(
+        feats=map_zscore_norm(feats),
+        lane_type_cats=torch.from_numpy(rng.integers(0, 8, SEGMENTS)),
+        edge_src=torch.from_numpy(rng.integers(0, SEGMENTS, 4 * SEGMENTS)),
+        edge_dst=torch.from_numpy(rng.integers(0, SEGMENTS, 4 * SEGMENTS)),
+        centroids=torch.from_numpy(rng.standard_normal((SEGMENTS, 2)).astype(np.float32) * 100),
+    ).to(dev)
+    return batch, md
+
+
+COUNTED = {"gru_fwd": ("gru_cuda", "gru_fwd"), "gru_fwd_sg": ("gru_cuda", "gru_fwd_sg"),
+           "gru_bwd": ("gru_cuda", "gru_bwd"), "gru_bwd_sg": ("gru_cuda", "gru_bwd_sg"),
+           "knn_topk": ("knn_ops", "knn_topk_fused")}
+
+
+def set_counts_to_zero(mods: dict) -> None:
+    for mod, fn in COUNTED.values():
+        getattr(mods[mod], fn).launches = 0
+
+
+def read_counts(mods: dict) -> dict:
+    return {name: getattr(mods[mod], fn).launches for name, (mod, fn) in COUNTED.items()}
+
+
+def plain_versions(gru_cuda, knn_ops):
+    """Every kernel wrapper of the training path replaced by its plain version."""
+    from contextlib import ExitStack
+
+    stack = ExitStack()
+    for name in ("gru_fwd", "gru_fwd_sg", "gru_bwd", "gru_bwd_sg"):
+        stack.enter_context(mock.patch.object(gru_cuda, name,
+                                              getattr(gru_cuda, f"{name}_plain")))
+    stack.enter_context(mock.patch.object(knn_ops, "knn_topk_fused", knn_ops.knn_topk_plain))
+    return stack
+
+
+def check_training(mods: dict, gru_impl: str, batch, md, dev, smi: str):
+    """The flagship step through build_step_fns: (a) one step's parameter
+    gradients (dropout off) through the kernels against the plain versions
+    on the card; (b) TRAIN_STEPS steps with dropout 0.25 from the card's
+    generator, every loss finite; (c) one forward and one backward GRU
+    launch and one KNN launch a step. Returns the trained model and counts."""
+    from sldm_gnn_tpu_torch.models.grusage import GruSage
+    from sldm_gnn_tpu_torch.train.losses import masked_graph_loss
+    from sldm_gnn_tpu_torch.train.loop import build_step_fns, make_optimizer
+
+    gru_cuda, knn_ops = mods["gru_cuda"], mods["knn_ops"]
+    y = batch.y[batch.graph_mask]
+    pos_weight = float((y == 0).sum() / (y == 1).sum().clamp_min(1))
+    model = GruSage(flagship_config(gru_impl, 0.25), map_feat_dim=MAP_FEATS).to(dev)
+    fns = build_step_fns(model, make_optimizer(1e-3, 5e-5), map_data=md, pos_weight=pos_weight)
+    card_gen = torch.Generator(device=dev).manual_seed(SEED)
+    state = fns.init(card_gen)
+    params = [p for p in model.parameters()]
+    names = [n for n, _ in model.named_parameters()]
+
+    def grads():
+        model.eval()  # dropout off; the GRU still takes the autograd path
+        loss = masked_graph_loss(model(batch, map_data=md), batch.y, batch.graph_mask,
+                                 pos_weight=pos_weight)
+        return loss, torch.autograd.grad(loss, params)
+
+    loss_k, g_k = grads()
+    with plain_versions(gru_cuda, knn_ops):
+        loss_p, g_p = grads()
+    torch.cuda.synchronize()
+    worst, worst_name, worst_scale = 0.0, "", 0.0
+    for name, a, b in zip(names, g_k, g_p):
+        scale = b.abs().max().item() + STEP_GRAD_FLOOR
+        excess = ((a - b).abs() - STEP_GRAD_TOL * b.abs()).max().item() / scale
+        if excess > worst:
+            worst, worst_name, worst_scale = excess, name, scale
+        if not torch.isfinite(a).all() or excess > STEP_GRAD_TOL:
+            raise AssertionError(f"train {gru_impl}: gradient of {name} through the kernels "
+                                 f"disagrees with the plain versions ({excess:.3e})")
+    log(f"train {gru_impl} N={batch.node_capacity} rows, {PACKS} graphs: one step (dropout off) "
+        f"through the kernels vs the plain versions: loss {loss_k.item():.6f} vs "
+        f"{loss_p.item():.6f}; {len(names)} gradients within rtol {STEP_GRAD_TOL} + "
+        f"{STEP_GRAD_TOL} * (max|g| + {STEP_GRAD_FLOOR}) (largest excess over rtol: "
+        f"{worst:.3e} of that scale, {worst_name}, max|g| + floor {worst_scale:.3e})")
+
+    set_counts_to_zero(mods)
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = fns.train_step(state, batch, card_gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+    counts = read_counts(mods)
+    losses = torch.stack(losses).cpu().numpy()
+    fwd = "gru_fwd_sg" if gru_impl == "pallas_sg" else "gru_fwd"
+    bwd = "gru_bwd_sg" if gru_impl == "pallas_sg" else "gru_bwd"
+    p50 = float(np.median(times))
+    log(f"train {gru_impl}: {TRAIN_STEPS} steps (dropout 0.25), losses {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}, p50 {p50:.3f} ms/step ({PACKS / p50 * 1e3:.1f} graphs/s; first "
+        f"step {times[0]:.1f} ms), launches {counts}, on {smi}")
+    want = {fwd: TRAIN_STEPS, bwd: TRAIN_STEPS, "knn_topk": TRAIN_STEPS}
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train {gru_impl}: a loss is not finite: {losses}")
+    if any(counts[k] != v for k, v in want.items()) or \
+            sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"train {gru_impl}: launches {counts}, want {want}")
+    profile_steps(fns, state, batch, card_gen, gru_impl)
+    return model, counts
+
+
+def profile_steps(fns, state, batch, gen, gru_impl: str, steps: int = 3) -> None:
+    """Device time of `steps` training steps by kernel, from torch.profiler
+    (CUPTI): the GRU kernels, the KNN kernel, and the rest by name; and the
+    card's idle share of the window's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, _ = fns.train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    except RuntimeError as e:
+        log(f"profile {gru_impl}: not measured (torch.profiler failed: {e})")
+        return
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    if busy <= 0:
+        log(f"profile {gru_impl}: not measured (no device time in the trace)")
+        return
+    groups: dict[str, float] = {}
+    for e in events:
+        key = next((k for k in ("gru_fwd_kernel", "gru_bwd_kernel", "gru_bwd_reduce",
+                                "knn_topk_kernel") if k in e.key), e.key[:60])
+        groups[key] = groups.get(key, 0.0) + e.self_device_time_total / 1e3 / steps
+    top = sorted(groups.items(), key=lambda kv: -kv[1])[:12]
+    log(f"profile {gru_impl}: {steps} steps, wall {wall / steps:.3f} ms/step, device busy "
+        f"{busy / steps:.3f} ms/step (idle share {max(0.0, 1 - busy / wall):.3f}); device ms "
+        f"per step by kernel: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
+
+
+def check_train_to_serve(mods: dict, model, md, tmp: Path, dev) -> None:
+    """The trained model, saved through train/snapshot.py with its map
+    embeddings baked, serves the wire stream through InferenceEngine."""
+    from sldm_gnn_tpu_torch.serve.stream import InferenceEngine
+    from sldm_gnn_tpu_torch.train.snapshot import save_snapshot
+
+    path = tmp / "trained.pkl"
+    save_snapshot(path, model, map_data=md, loss_info={"type": "BCEWithLogits"})
+    frames = wire_stream()
+    engine = InferenceEngine(path, pack_size=FRAMES, device=dev)
+    set_counts_to_zero(mods)
+    scores, times = serve(engine, frames)
+    counts = read_counts(mods)
+    with plain_versions(mods["gru_cuda"], mods["knn_ops"]):
+        plain, _ = serve(InferenceEngine(path, pack_size=FRAMES, device=dev), frames)
+    err = np.abs(scores - plain).max()
+    log(f"train -> serve: snapshot with baked map ({engine.map_embeddings.shape[0]} segments), "
+        f"{len(scores)} windows scored, host ms/window p50 {np.median(times):.3f}, launches "
+        f"{counts}; scores vs plain versions max_abs {err:.3e} (tol {SCORE_ATOL})")
+    if scores.shape != (len(frames) - FRAMES + 1, LABELS) or not np.isfinite(scores).all() \
+            or scores.min() < 0 or scores.max() > 1 or err > SCORE_ATOL:
+        raise AssertionError("the trained snapshot does not serve")
+    if counts["gru_fwd"] <= 0 or counts["knn_topk"] <= 0:
+        raise AssertionError(f"serving the trained snapshot skipped a kernel: {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -388,11 +797,25 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     entries = [check_gru(gru_cuda, gen, rng, dev), check_knn(knn_ops, gen, rng, dev)]
+    for e in entries:
+        e["path"] = "serve"
+    train_entries = check_gru_training_kernels(gru_cuda, gen, dev)
+    torch.cuda.empty_cache()
 
+    mods = {"gru_cuda": gru_cuda, "knn_ops": knn_ops}
     with tempfile.TemporaryDirectory() as tmp:
         launches = check_serving(gru_cuda, knn_ops, Path(tmp), dev)
-    for e in entries:
-        e["launches"] = launches[e["name"]]
+        for e in entries:
+            e["launches"] = launches[e["name"]]
+        batch, md = synth_training_data(dev)
+        model_sg, counts_sg = check_training(mods, "pallas_sg", batch, md, dev, smi)
+        _, counts_v2 = check_training(mods, "pallas", batch, md, dev, smi)
+        del batch
+        torch.cuda.empty_cache()
+        check_train_to_serve(mods, model_sg, md, Path(tmp), dev)
+    for e in train_entries:
+        e["launches"] = (counts_sg if e["name"].endswith("_sg") else counts_v2)[e["name"]]
+    entries += train_entries
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -7,6 +7,16 @@
 // in f32 with expf/tanhf, and the carry rounded to bf16 after every step.
 // Gate order r, z, n (torch's nn.GRU).
 //
+// The same kernel, instantiated with kStoreGates, also replaces
+// `_fwd3_kernel` (gru_pallas.py:641, launched by `_run_fwd3` :759 for the
+// store-gates `gru_last_sg_pallas` :840 and `gru_seq_sg_pallas` :888): it
+// writes the packed bf16 gates r|z|n|hn [T, N, 4H] beside hs (hn is the
+// hidden projection of the n gate, bias included), which the store-gates
+// backward (gru_bwd_sg.cu) reads instead of recomputing. Its hs is bit-equal
+// to the plain instance's: the arithmetic is the same code. That instance
+// moves T*N*(4H+H)*2 bytes of output (1.9 GB at the flagship shape), so it
+// is bound by bytes (0.57 ms at 3.35 TB/s), not by operations.
+//
 // What bounds it on the H100: the recurrence. Each of the T steps needs the
 // previous step's carry, so a row's T steps run in order; the work per step
 // is a [rows, H] x [H, 3H] product plus a [rows, D] x [D, 3H] one. At the
@@ -59,6 +69,8 @@ size_t smem_bytes(int D, int H) {
 // x [N, T, D] f32 with element strides sn (rows) and st (frames), the last
 // dimension contiguous; w_ih [D, 3H], w_hh [H, 3H] bf16 (JAX layout);
 // b_ih, b_hh [3H] f32. Writes h_last [N, H] f32 and/or hs [T, N, H] bf16.
+// With kStoreGates also writes gates [T, N, 4H] bf16 = r | z | n | hn.
+template <bool kStoreGates>
 __global__ void gru_fwd_kernel(const float* __restrict__ x, int64_t sn, int64_t st,
                                int N, int T, int D, int H,
                                const __nv_bfloat16* __restrict__ w_ih,
@@ -66,7 +78,8 @@ __global__ void gru_fwd_kernel(const float* __restrict__ x, int64_t sn, int64_t 
                                const __nv_bfloat16* __restrict__ w_hh,
                                const float* __restrict__ b_hh,
                                float* __restrict__ h_last,
-                               __nv_bfloat16* __restrict__ hs) {
+                               __nv_bfloat16* __restrict__ hs,
+                               __nv_bfloat16* __restrict__ gates) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int H3 = 3 * H;
   const int Hh = (H + 1) / 2;
@@ -149,7 +162,17 @@ __global__ void gru_fwd_kernel(const float* __restrict__ x, int64_t sn, int64_t 
       const float z = sigmoid(xz + hz);
       const float n = tanhf(xn + r * hn);
       const float hold = hc[(r0 + i) * Hp + j];
-      hnew[i] = bf16_round((1.0f - z) * n + z * hold);
+      hnew[i] = bf16_round(fmaf(1.0f - z, n, z * hold));  // XLA's contraction of the update
+      if (kStoreGates) {
+        const int row = row0 + r0 + i;
+        if (row < N) {
+          __nv_bfloat16* gt = gates + (static_cast<size_t>(t) * N + row) * (4 * H);
+          gt[j] = __float2bfloat16_rn(r);
+          gt[H + j] = __float2bfloat16_rn(z);
+          gt[2 * H + j] = __float2bfloat16_rn(n);
+          gt[3 * H + j] = __float2bfloat16_rn(hn);
+        }
+      }
     }
     __syncthreads();  // every thread has read the old carry
 
@@ -178,11 +201,10 @@ __global__ void gru_fwd_kernel(const float* __restrict__ x, int64_t sn, int64_t 
   }
 }
 
-}  // namespace
-
-extern "C" int gru_fwd_launch(const void* x, int64_t stride_n, int64_t stride_t, int N, int T,
-                              int D, int H, const void* w_ih, const void* b_ih, const void* w_hh,
-                              const void* b_hh, void* h_last, void* hs, void* stream) {
+template <bool kStoreGates>
+int launch(const void* x, int64_t stride_n, int64_t stride_t, int N, int T, int D, int H,
+           const void* w_ih, const void* b_ih, const void* w_hh, const void* b_hh, void* h_last,
+           void* hs, void* gates, void* stream) {
   if (N <= 0 || T <= 0 || D <= 0 || H <= 0 || H * kRowGroups > 1024) return SLDM_ERR_SHAPE;
   const size_t smem = smem_bytes(D, H);
   int dev = 0, smem_max = 0;
@@ -191,15 +213,35 @@ extern "C" int gru_fwd_launch(const void* x, int64_t stride_n, int64_t stride_t,
   err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   if (smem > static_cast<size_t>(smem_max)) return SLDM_ERR_SMEM;
-  err = cudaFuncSetAttribute(gru_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  err = cudaFuncSetAttribute(gru_fwd_kernel<kStoreGates>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 block(H, kRowGroups);
   const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock);
-  gru_fwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  gru_fwd_kernel<kStoreGates><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), stride_n, stride_t, N, T, D, H,
       static_cast<const __nv_bfloat16*>(w_ih), static_cast<const float*>(b_ih),
       static_cast<const __nv_bfloat16*>(w_hh), static_cast<const float*>(b_hh),
-      static_cast<float*>(h_last), static_cast<__nv_bfloat16*>(hs));
+      static_cast<float*>(h_last), static_cast<__nv_bfloat16*>(hs),
+      static_cast<__nv_bfloat16*>(gates));
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int gru_fwd_launch(const void* x, int64_t stride_n, int64_t stride_t, int N, int T,
+                              int D, int H, const void* w_ih, const void* b_ih, const void* w_hh,
+                              const void* b_hh, void* h_last, void* hs, void* stream) {
+  return launch<false>(x, stride_n, stride_t, N, T, D, H, w_ih, b_ih, w_hh, b_hh, h_last, hs,
+                       nullptr, stream);
+}
+
+// The store-gates forward: hs [T, N, H] and gates [T, N, 4H], both bf16.
+extern "C" int gru_fwd_sg_launch(const void* x, int64_t stride_n, int64_t stride_t, int N,
+                                 int T, int D, int H, const void* w_ih, const void* b_ih,
+                                 const void* w_hh, const void* b_hh, void* hs, void* gates,
+                                 void* stream) {
+  if (hs == nullptr || gates == nullptr) return SLDM_ERR_SHAPE;
+  return launch<true>(x, stride_n, stride_t, N, T, D, H, w_ih, b_ih, w_hh, b_hh, nullptr, hs,
+                      gates, stream);
 }

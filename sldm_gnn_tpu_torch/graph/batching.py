@@ -1,7 +1,7 @@
 """Collation of ragged graphs into a fixed-capacity :class:`PaddedGraphBatch`.
 
 Port of ``sldm_gnn_tpu/graph/batching.py`` (``BatchDims``,
-``pad_and_batch``). The padding is built in numpy
+``compute_batch_dims`` :36, ``pad_and_batch``). The padding is built in numpy
 on the host and becomes torch tensors once, at the end; the batch moves to
 the card with :meth:`PaddedGraphBatch.to`.
 """
@@ -24,6 +24,29 @@ class BatchDims:
     graph_capacity: int
     num_frames: int
     num_labels: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((int(x) + m - 1) // m) * m
+
+
+def compute_batch_dims(graphs: Sequence[GraphArrays], batch_size: int, num_labels: int,
+                       *, align: int = 8) -> BatchDims:
+    """Static capacities that fit any ``batch_size`` graphs of the dataset:
+    the sums of the ``batch_size`` largest node and edge counts, rounded up
+    to ``align``."""
+    if not graphs:
+        raise ValueError("empty dataset")
+    v = np.sort(np.array([g.num_nodes for g in graphs]))[::-1]
+    e = np.sort(np.array([g.num_edges for g in graphs]))[::-1]
+    k = min(batch_size, len(graphs))
+    return BatchDims(
+        node_capacity=_round_up(max(int(v[:k].sum()), 1), align),
+        edge_capacity=_round_up(max(int(e[:k].sum()), 1), align),
+        graph_capacity=batch_size,
+        num_frames=int(graphs[0].x.shape[1]),
+        num_labels=num_labels,
+    )
 
 
 def pad_and_batch(graphs: Sequence[GraphArrays], dims: BatchDims) -> PaddedGraphBatch:

@@ -9,8 +9,9 @@ stores it) becomes the port's ``state_dict`` and back:
   * GRU leaves (``gru.w_ih0 [D, 3H]`` ...) keep the JAX layout, which is
     the layout of the port's GRU ops.
 
-Leaves under ``map_encoder`` are skipped: the port serves with baked map
-embeddings (a snapshot strips them unless asked to keep them).
+Leaves under ``map_encoder`` move too. A snapshot strips them unless
+asked to keep them (``train/snapshot.py``), and a model built for serving
+has no encoder: :func:`map_feat_dim` says which to build.
 """
 
 from __future__ import annotations
@@ -20,9 +21,6 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
-
-_SKIP = ("map_encoder",)
-
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     out = {}
@@ -39,8 +37,6 @@ def params_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
     """JAX param tree -> the port's ``state_dict`` (CPU tensors)."""
     sd = {}
     for name, a in _flatten(params).items():
-        if name.split(".")[0] in _SKIP:
-            continue
         stem, leaf = name.rsplit(".", 1)
         if leaf == "kernel":
             sd[f"{stem}.weight"] = torch.from_numpy(np.array(a.T))
@@ -49,6 +45,15 @@ def params_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
         else:
             sd[name] = torch.from_numpy(np.array(a))
     return sd
+
+
+def map_feat_dim(params: dict, lane_embed_dim: int) -> int | None:
+    """Width of ``MapData.feats`` that the tree's map encoder takes, or None
+    when the tree has no encoder (a snapshot's default)."""
+    enc = params.get("map_encoder")
+    if not enc:
+        return None
+    return int(np.asarray(enc["sage"]["conv0"]["lin_r"]["kernel"]).shape[0]) - lane_embed_dim
 
 
 def state_dict_to_params(model: nn.Module) -> dict:

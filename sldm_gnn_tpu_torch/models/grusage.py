@@ -1,15 +1,21 @@
-"""GruSage, eval mode: per-node GRU -> feature concat -> MLP -> optional
-map context (KNN attention over baked embeddings) -> GraphSAGE -> global
-pooling -> MLP -> multi-label logits.
+"""GruSage: per-node GRU -> feature concat -> MLP -> optional map context
+(map encoder + KNN attention) -> GraphSAGE -> global pooling -> MLP ->
+multi-label logits.
 
 Port of ``sldm_gnn_tpu/models/grusage.py`` (``GruSageConfig``,
-``GruSage.__call__`` :193-279 and the ``GRUCell`` dispatch :333-351).
-Parameter names follow the JAX param tree; see
-:mod:`sldm_gnn_tpu_torch.interop`.
+``GruSage.__call__`` :193-279, ``encode_map`` :189 and the ``GRUCell``
+dispatch :333-351). Parameter names follow the JAX param tree; see
+:mod:`sldm_gnn_tpu_torch.interop`. In ``train()`` mode dropout follows
+every activation, with masks drawn from the ``generator`` passed to
+:meth:`GruSage.forward`.
 
-Not ported yet (raise here): ``MapEncoder`` (the map branch takes baked
-embeddings), ``compute_dtype`` other than None, ``sage_type='attention'``,
-the sharded map axes and the dense block-diagonal batches.
+The map branch runs the live :class:`~.map_modules.MapEncoder` over a
+:class:`~.map_modules.MapData` (training), or takes embeddings baked by
+:meth:`GruSage.encode_map` (serving; the encoder is then not built).
+
+Not ported yet (raise here): ``compute_dtype`` other than None,
+``sage_type='attention'``, the sharded map axes and the dense
+block-diagonal batches.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from ..ops import gru_cuda
 from ..ops.gru import GRUParams, gru_forward
 from ..ops.segment import global_max_pool, global_mean_pool
 from .blocks import MLPStack, SageBlock
-from .map_modules import MapSpatialAttention
+from .map_modules import MapData, MapEncoder, MapSpatialAttention
 
 
 @dataclass(frozen=True)
@@ -123,11 +129,16 @@ class GRUCell(nn.Module):
         """``h_last [N, H]`` of the top layer."""
         if self.impl == "scan":
             return gru_forward(self.params(), x)[1]
-        return gru_cuda.gru_last_forward(self.params(), x)
+        return gru_cuda.gru_last_forward(self.params(), x,
+                                         store_gates=self.impl == "pallas_sg")
 
 
 class GruSage(nn.Module):
-    def __init__(self, cfg: GruSageConfig):
+    """``map_feat_dim``: the width of ``MapData.feats`` that the live map
+    encoder takes (a map model is trained with it); None builds no encoder,
+    and the map branch then needs baked embeddings (serving)."""
+
+    def __init__(self, cfg: GruSageConfig, *, map_feat_dim: int | None = None):
         super().__init__()
         c = cfg
         if c.compute_dtype is not None:
@@ -144,14 +155,19 @@ class GruSage(nn.Module):
         self.gru = GRUCell(c.dynamic_features_num, c.gru_hidden_size,
                            c.gru_num_layers, impl=c.gru_impl)
         self.fc1s = MLPStack(c.gru_hidden_size + 2 + c.emb_dim, c.fc1dims,
-                             c.negative_slope)
+                             c.negative_slope, c.dropout)
         width = self.fc1s.out_dim
+        self.map_encoder = None
         if c.map_included:
+            if map_feat_dim is not None:
+                self.map_encoder = MapEncoder(
+                    c.num_lane_types, map_feat_dim, c.mapenc_lane_embdim,
+                    c.mapenc_sage_hdims, c.dropout, c.negative_slope)
             self.map_attention = MapSpatialAttention(c.map_attention_topk, c.knn_impl)
             width += c.mapenc_sage_hdims[-1]
-        self.sage = SageBlock(width, c.sage_hidden_dims, c.negative_slope)
+        self.sage = SageBlock(width, c.sage_hidden_dims, c.negative_slope, c.dropout)
         width = c.sage_hidden_dims[-1] * (2 if c.global_pooling == "double" else 1)
-        self.fc2s = MLPStack(width, c.fc2dims, c.negative_slope)
+        self.fc2s = MLPStack(width, c.fc2dims, c.negative_slope, c.dropout)
         self.linout = nn.Linear(self.fc2s.out_dim, c.out_dim)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -171,9 +187,23 @@ class GruSage(nn.Module):
                     prm.uniform_(-bound, bound, generator=generator)
         self.gru.reset_parameters(generator)
 
-    def forward(self, batch: PaddedGraphBatch, *,
+    def encode_map(self, map_data: MapData, *,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+        """The map encoder alone: ``[S, mapenc_sage_hdims[-1]]`` embeddings
+        (what a snapshot bakes for serving)."""
+        if self.map_encoder is None:
+            raise ValueError("this GruSage was built without a map encoder "
+                             "(pass map_feat_dim=)")
+        return self.map_encoder(map_data, generator=generator)
+
+    def forward(self, batch: PaddedGraphBatch, *, map_data: MapData | None = None,
                 map_embeddings: torch.Tensor | None = None,
-                map_centroids: torch.Tensor | None = None) -> torch.Tensor:
+                map_centroids: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits ``[G, out_dim]``. A map model takes either ``map_data``
+        (the live encoder) or baked ``map_embeddings`` with their
+        ``map_centroids``. ``generator`` draws the dropout masks in
+        ``train()`` mode."""
         c = self.cfg
         N = batch.node_capacity
         G = batch.graph_capacity
@@ -181,18 +211,23 @@ class GruSage(nn.Module):
         st = self.st_emb(batch.xsttype)
         h = self.gru(batch.x)
         x = torch.cat([h, batch.xdims, st], dim=1)
-        x = self.fc1s(x)
+        x = self.fc1s(x, generator=generator)
 
         if c.map_included:
-            if map_embeddings is None or map_centroids is None:
-                raise ValueError(
-                    "map_included model needs baked map_embeddings and "
-                    "map_centroids (the map encoder is not ported yet)")
+            if map_embeddings is None:
+                if map_data is None:
+                    raise ValueError("map_included model needs map_data or baked "
+                                     "map_embeddings")
+                map_embeddings = self.encode_map(map_data, generator=generator)
+                map_centroids = map_data.centroids
+            elif map_centroids is None:
+                raise ValueError("baked map_embeddings require map_centroids")
             last_pos = batch.pos_raw[:, -1, :]
             ctx = self.map_attention(last_pos, map_centroids, map_embeddings)
             x = torch.cat([x, ctx], dim=1)
 
-        x = self.sage(x, batch.edge_src, batch.edge_dst, batch.edge_mask, N)
+        x = self.sage(x, batch.edge_src, batch.edge_dst, batch.edge_mask, N,
+                      generator=generator)
 
         if c.global_pooling == "mean":
             x = global_mean_pool(x, batch.node_graph, batch.node_mask, G)
@@ -202,5 +237,5 @@ class GruSage(nn.Module):
             x = torch.cat([global_mean_pool(x, batch.node_graph, batch.node_mask, G),
                            global_max_pool(x, batch.node_graph, batch.node_mask, G)],
                           dim=1)
-        x = self.fc2s(x)
+        x = self.fc2s(x, generator=generator)
         return self.linout(x)

@@ -1,10 +1,16 @@
-"""KNN spatial attention over baked map embeddings, eval mode.
+"""Map context: the static map encoder and the KNN spatial attention.
 
-Port of ``MapSpatialAttention`` (``sldm_gnn_tpu/models/map_modules.py``
-:250-321): the K nearest map segments per vehicle, a distance MLP
-(Linear(1,16) -> ReLU -> Linear(16,1)), a softmax over the K, and the
-weighted sum of the segments' embeddings. ``MapEncoder`` is not ported
-yet: serving uses the embeddings baked into the snapshot.
+Port of ``sldm_gnn_tpu/models/map_modules.py``:
+
+  * :func:`map_zscore_norm` (:28), :class:`MapData` (:37, without the
+    dense ``adj``) and :class:`MapEncoder` (:203, replicated form: the
+    lane-type embedding concatenated to the features, then a
+    :class:`~.blocks.SageBlock` over the map graph). Training runs the
+    encoder every step; :meth:`GruSage.encode_map` bakes its output into a
+    snapshot for serving. The sharded variants are not ported.
+  * :class:`MapSpatialAttention` (:250-321): the K nearest map segments per
+    vehicle, a distance MLP (Linear(1,16) -> ReLU -> Linear(16,1)), a
+    softmax over the K, and the weighted sum of the segments' embeddings.
 
 ``knn_impl='topk'`` selects on the square-rooted distances
 (:func:`~sldm_gnn_tpu_torch.ops.knn.knn_topk`) and gathers the K rows;
@@ -15,11 +21,94 @@ scatter-free combine ``Wsel @ emb`` of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
+from dataclasses import dataclass
+from typing import Sequence
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops import knn as knn_ops
+from .blocks import SageBlock
+
+
+def map_zscore_norm(feats: torch.Tensor) -> torch.Tensor:
+    """One-shot population z-score over segments, sigma clamped >= 1e-8."""
+    mu = feats.mean(dim=0, keepdim=True)
+    sigma = torch.sqrt(((feats - mu) ** 2).mean(dim=0, keepdim=True)).clamp_min(1e-8)
+    return (feats - mu) / sigma
+
+
+@dataclass(frozen=True)
+class MapData:
+    """Static map graph tensors, preprocessed for the encoder:
+
+      feats          [S, F]  float32 — z-scored float features concatenated
+                              with the boolean ones cast to float
+      lane_type_cats [S]     int64
+      edge_src       [Em]    int64
+      edge_dst       [Em]    int64
+      centroids      [S, 2]  float32 — segment centroids for the attention
+      edge_mask      [Em]    bool or None — False on padding edges
+    """
+
+    feats: torch.Tensor
+    lane_type_cats: torch.Tensor
+    edge_src: torch.Tensor
+    edge_dst: torch.Tensor
+    centroids: torch.Tensor
+    edge_mask: torch.Tensor | None = None
+
+    @property
+    def num_segments(self) -> int:
+        return self.feats.shape[0]
+
+    def mask(self) -> torch.Tensor:
+        if self.edge_mask is not None:
+            return self.edge_mask
+        return torch.ones(self.edge_src.shape[0], dtype=torch.bool,
+                          device=self.edge_src.device)
+
+    def to(self, device: str | torch.device) -> "MapData":
+        """Every tensor on ``device``; indices become int64."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if v is not None:
+                v = torch.as_tensor(v)
+                if f.name in ("lane_type_cats", "edge_src", "edge_dst"):
+                    v = v.long()
+                v = v.to(device)
+            out[f.name] = v
+        return MapData(**out)
+
+
+class MapEncoder(nn.Module):
+    """Lane-type embedding concatenated to the segment features, then a
+    SAGE stack over the map graph: ``[S, sage_hidden_dims[-1]]``."""
+
+    def __init__(self, num_lane_types: int, feat_dim: int, lane_embed_dim: int = 2,
+                 sage_hidden_dims: Sequence[int] = (8, 8), dropout: float | None = None,
+                 negative_slope: float | None = None):
+        super().__init__()
+        self.feat_dim = feat_dim
+        self.lane_embedding = nn.Embedding(num_lane_types, lane_embed_dim)
+        self.sage = SageBlock(feat_dim + lane_embed_dim, sage_hidden_dims, negative_slope,
+                              dropout)
+
+    @property
+    def out_dim(self) -> int:
+        return getattr(self.sage, f"conv{self.sage.n_layers - 1}").lin_l.out_features
+
+    def forward(self, map_data: MapData, *,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if map_data.feats.shape[1] != self.feat_dim:
+            raise ValueError(f"map feats have {map_data.feats.shape[1]} columns; the "
+                             f"encoder was built for {self.feat_dim}")
+        x = torch.cat([map_data.feats, self.lane_embedding(map_data.lane_type_cats)], dim=1)
+        return self.sage(x, map_data.edge_src, map_data.edge_dst, map_data.mask(),
+                         map_data.num_segments, generator=generator)
 
 
 class MapSpatialAttention(nn.Module):

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes`` (no
-PyTorch headers, so the build takes seconds, not minutes). It runs at
-first use, into ``_build/`` beside the package (listed in ``.gitignore``).
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``, all
+started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
+the build takes seconds, not minutes). It runs at first use, into
+``_build/`` beside the package (listed in ``.gitignore``).
 The library's file name carries a hash of the sources and flags; the
 build writes a temporary name and renames it into place, so a build that
 is cut off leaves no half-written library behind.
@@ -26,10 +27,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()
@@ -68,20 +67,41 @@ def _build(out: Path) -> None:
     global build_log, build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in sources]
     t0 = time.perf_counter()
+    logs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=BUILD_TIMEOUT_S)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        failed = []
+        try:
+            for src, proc in zip(sources, procs):
+                text = proc.communicate(timeout=BUILD_TIMEOUT_S)[0]
+                logs.append(text)
+                if proc.returncode != 0:
+                    failed.append(f"nvcc {src.name} failed ({proc.returncode}):\n{text}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n"
+                               f"{link.stderr}")
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(logs)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -92,6 +112,32 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p,                  # h_last f32 or NULL, hs bf16 or NULL, stream
     ]
     lib.gru_fwd_launch.restype = i
+    lib.gru_fwd_sg_launch.argtypes = [
+        p, i64, i64, i, i, i, i,  # x, stride_n, stride_t, N, T, D, H
+        p, p, p, p,               # w_ih bf16, b_ih f32, w_hh bf16, b_hh f32
+        p, p, p,                  # hs bf16, gates bf16, stream
+    ]
+    lib.gru_fwd_sg_launch.restype = i
+    pi = ctypes.POINTER(ctypes.c_int)
+    for name in ("gru_bwd_grid", "gru_bwd_sg_grid"):
+        getattr(lib, name).argtypes = [i, i, i, pi]  # N, D, H, -> blocks
+        getattr(lib, name).restype = i
+    lib.gru_bwd_launch.argtypes = [
+        p, i64, i64, p,           # x, stride_n, stride_t, hs
+        p, i64, i64, i,           # g, stride_n, stride_t, seq_cot
+        i, i, i, i,               # N, T, D, H
+        p, p, p, p,               # w_ih, b_ih, w_hh, b_hh
+        p, p, i, p, p,            # dx or NULL, partial, blocks, out, stream
+    ]
+    lib.gru_bwd_launch.restype = i
+    lib.gru_bwd_sg_launch.argtypes = [
+        p, i64, i64, p, p,        # x, stride_n, stride_t, hs, gates
+        p, i64, i64, i,           # g, stride_n, stride_t, seq_cot
+        i, i, i, i,               # N, T, D, H
+        p, p,                     # w_ih, w_hh
+        p, p, i, p, p,            # dx or NULL, partial, blocks, out, stream
+    ]
+    lib.gru_bwd_sg_launch.restype = i
     lib.knn_topk_launch.argtypes = [p, i, p, i, i, p, p, p]
     lib.knn_topk_launch.restype = i
     lib.sldm_error_string.argtypes = [i]

@@ -1,23 +1,35 @@
-"""Fused GRU forward with bf16 operands: the CUDA kernel ``csrc/gru_fwd.cu``
-and its plain PyTorch version.
+"""Fused GRU with bf16 operands, forward and backward: the CUDA kernels
+``csrc/gru_fwd.cu``, ``csrc/gru_bwd.cu`` and ``csrc/gru_bwd_sg.cu`` and
+their plain PyTorch versions.
 
-Port of the forward half of ``sldm_gnn_tpu/ops/gru_pallas.py`` v2
-(``_fwd2_kernel`` :246, ``_run_fwd2`` :400, ``gru_last_pallas`` :477,
-``gru_seq_pallas`` :544, ``gru_last_forward`` :591), the
-``gru_impl='pallas'`` path. Numerics follow the TPU kernel: x, W_ih and
-W_hh rounded to bf16, f32 sums and gate math, the carry rounded to bf16
-after every step. Against the f32 scan (:mod:`.gru`) that is ~1e-2
-relative after 100 frames, the JAX package's v2 contract.
+Port of ``sldm_gnn_tpu/ops/gru_pallas.py`` v2 and v3 (``gru_last_pallas``
+:477, ``gru_seq_pallas`` :544, ``gru_last_forward`` :591,
+``gru_last_sg_pallas`` :840, ``gru_seq_sg_pallas`` :888), the
+``gru_impl='pallas'`` and ``'pallas_sg'`` paths:
 
-:func:`gru_fwd` runs the kernel on CUDA tensors and :func:`gru_fwd_plain`
-on CPU tensors; it never falls back from one to the other.
+  * :func:`gru_fwd` (``_fwd2_kernel``): ``h_last`` or the bf16 ``hs``;
+  * :func:`gru_fwd_sg` (``_fwd3_kernel``): ``hs`` plus the packed bf16
+    gates ``r|z|n|hn``, with ``hs`` bit-equal to :func:`gru_fwd`'s;
+  * :func:`gru_bwd` (``_bwd2_kernel``): BPTT recomputing the gates from hs;
+  * :func:`gru_bwd_sg` (``_bwd3_kernel``): BPTT reading the stored gates.
+
+Numerics follow the TPU kernels: x, W_ih and W_hh rounded to bf16, f32
+sums and gate math, the carry rounded to bf16 after every step; in the
+backward an f32 dh carry and dxp/dhp rounded to bf16 before each product.
+Against the f32 scan (:mod:`.gru`) that is ~1e-2 relative after 100
+frames, the JAX package's v2 contract.
+
+Each wrapper runs its kernel on CUDA tensors and its plain version on CPU
+tensors; it never falls back from one to the other. :class:`GruLastFn`
+and :class:`GruSeqFn` wire the kernels into autograd; they skip ``dx``
+when the input needs no gradient (GruSage's ``with_dx=False``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .gru import GRUParams, gru_cell
+from .gru import GRUParams
 
 
 def _check(x, w_ih, b_ih, w_hh, b_hh):
@@ -33,6 +45,48 @@ def _check(x, w_ih, b_ih, w_hh, b_hh):
         raise ValueError("biases must be [3H]")
 
 
+def _gates_math(xp: torch.Tensor, hproj: torch.Tensor):
+    """(r, z, n, hn) in f32 from the input projection and the hidden
+    projection, biases included (:func:`~.gru.gru_cell`'s math)."""
+    xr, xz, xn = xp.chunk(3, dim=-1)
+    hr, hz, hn = hproj.chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return r, z, n, hn
+
+
+def _carry(z: torch.Tensor, n: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The next carry ``(1 - z) * n + z * h``, evaluated as the fused
+    multiply-add ``fma(1 - z, n, z * h)`` (as XLA lowers the TPU kernel's
+    expression, and as the CUDA kernel writes it; ``addcmul`` fuses on the
+    CPU), then rounded to bf16."""
+    return torch.addcmul(z * h, 1.0 - z, n).to(torch.bfloat16).float()
+
+
+def _fwd_plain(x, w_ih, b_ih, w_hh, b_hh, *, keep_hs: bool, keep_gates: bool):
+    """The forward kernels' arithmetic, step by step: ``(h_last [N, H] f32,
+    hs [T, N, H] bf16 or None, gates [T, N, 4H] bf16 or None)``."""
+    _check(x, w_ih, b_ih, w_hh, b_hh)
+    N, T, _ = x.shape
+    H = w_hh.shape[0]
+    xb = x.float().to(torch.bfloat16).float()
+    wih = w_ih.to(torch.bfloat16).float()
+    whh = w_hh.to(torch.bfloat16).float()
+    xproj = torch.matmul(xb, wih) + b_ih.float()  # [N, T, 3H]
+    h = x.new_zeros((N, H), dtype=torch.float32)
+    hs = x.new_empty((T, N, H), dtype=torch.bfloat16) if keep_hs else None
+    gates = x.new_empty((T, N, 4 * H), dtype=torch.bfloat16) if keep_gates else None
+    for t in range(T):
+        r, z, n, hn = _gates_math(xproj[:, t], h @ whh + b_hh.float())
+        h = _carry(z, n, h)
+        if keep_hs:
+            hs[t] = h.to(torch.bfloat16)
+        if keep_gates:
+            gates[t] = torch.cat([r, z, n, hn], dim=1).to(torch.bfloat16)
+    return h, hs, gates
+
+
 def gru_fwd_plain(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
                   w_hh: torch.Tensor, b_hh: torch.Tensor, *,
                   seq: bool = False) -> torch.Tensor:
@@ -42,23 +96,8 @@ def gru_fwd_plain(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     (JAX layout), ``b_ih``/``b_hh [3H]``. Returns ``h_last [N, H]`` f32, or
     with ``seq=True`` the whole ``hs [T, N, H]`` in bf16.
     """
-    _check(x, w_ih, b_ih, w_hh, b_hh)
-    N, T, _ = x.shape
-    H = w_hh.shape[0]
-    xb = x.float().to(torch.bfloat16).float()
-    wih = w_ih.to(torch.bfloat16).float()
-    whh = w_hh.to(torch.bfloat16).float()
-    xproj = torch.matmul(xb, wih) + b_ih.float()  # [N, T, 3H]
-    h = x.new_zeros((N, H), dtype=torch.float32)
-    hs = []
-    for t in range(T):
-        h = gru_cell(xproj[:, t], h @ whh + b_hh.float(), h)
-        h = h.to(torch.bfloat16).float()
-        if seq:
-            hs.append(h.to(torch.bfloat16))
-    if seq:
-        return torch.stack(hs) if hs else x.new_zeros((0, N, H), dtype=torch.bfloat16)
-    return h
+    h, hs, _ = _fwd_plain(x, w_ih, b_ih, w_hh, b_hh, keep_hs=seq, keep_gates=False)
+    return hs if seq else h
 
 
 def gru_fwd(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
@@ -80,10 +119,7 @@ def gru_fwd(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
         raise ValueError(f"x must be float32, got {x.dtype}")
     if x.stride(2) != 1:
         x = x.contiguous()
-    w_ih_b = w_ih.to(dev, torch.bfloat16).contiguous()
-    w_hh_b = w_hh.to(dev, torch.bfloat16).contiguous()
-    b_ih_f = b_ih.to(dev, torch.float32).contiguous()
-    b_hh_f = b_hh.to(dev, torch.float32).contiguous()
+    w_ih_b, b_ih_f, w_hh_b, b_hh_f = _weights(dev, w_ih, b_ih, w_hh, b_hh)
     if seq:
         out = torch.empty((T, N, H), device=dev, dtype=torch.bfloat16)
     else:
@@ -109,14 +145,309 @@ def gru_fwd(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
 gru_fwd.launches = 0
 
 
-def gru_last_forward(params: GRUParams, x: torch.Tensor) -> torch.Tensor:
-    """``h_last [N, H]`` of a GRU stack through :func:`gru_fwd`: lower
-    layers emit their whole sequence (bf16 ``[T, N, H]``), which the next
-    layer reads transposed; the top layer emits only its final state."""
+def gru_fwd_sg_plain(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
+                     w_hh: torch.Tensor, b_hh: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the store-gates forward, step by step:
+    ``(hs [T, N, H] bf16, gates [T, N, 4H] bf16 = r|z|n|hn)``, ``hn`` being
+    the n gate's hidden projection with its bias. ``hs`` is
+    :func:`gru_fwd_plain`'s ``seq=True`` output, bit for bit."""
+    _, hs, gates = _fwd_plain(x, w_ih, b_ih, w_hh, b_hh, keep_hs=True, keep_gates=True)
+    return hs, gates
+
+
+def gru_fwd_sg(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
+               w_hh: torch.Tensor, b_hh: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gru_fwd_sg_plain`'s function: the store-gates instance of the
+    ``csrc/gru_fwd.cu`` kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return gru_fwd_sg_plain(x, w_ih, b_ih, w_hh, b_hh)
+    if x.device.type != "cuda":
+        raise ValueError(f"gru_fwd_sg runs on CUDA or CPU tensors, got {x.device}")
+    _check(x, w_ih, b_ih, w_hh, b_hh)
+    if x.dtype != torch.float32:
+        raise ValueError(f"x must be float32, got {x.dtype}")
+    N, T, D = x.shape
+    H = w_hh.shape[0]
+    dev = x.device
+    if x.stride(2) != 1:
+        x = x.contiguous()
+    w_ih_b, b_ih_f, w_hh_b, b_hh_f = _weights(dev, w_ih, b_ih, w_hh, b_hh)
+    hs = torch.empty((T, N, H), device=dev, dtype=torch.bfloat16)
+    gates = torch.empty((T, N, 4 * H), device=dev, dtype=torch.bfloat16)
+    if N == 0 or T == 0:
+        return hs, gates
+    from . import _build
+
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.gru_fwd_sg_launch(
+            x.data_ptr(), x.stride(0), x.stride(1), N, T, D, H,
+            w_ih_b.data_ptr(), b_ih_f.data_ptr(), w_hh_b.data_ptr(), b_hh_f.data_ptr(),
+            hs.data_ptr(), gates.data_ptr(), stream)
+    _build.check(lib, code, f"gru_fwd_sg kernel (N={N}, T={T}, D={D}, H={H})")
+    gru_fwd_sg.launches += 1
+    return hs, gates
+
+
+gru_fwd_sg.launches = 0
+
+
+def _weights(dev, w_ih, b_ih, w_hh, b_hh):
+    return (w_ih.to(dev, torch.bfloat16).contiguous(), b_ih.to(dev, torch.float32).contiguous(),
+            w_hh.to(dev, torch.bfloat16).contiguous(), b_hh.to(dev, torch.float32).contiguous())
+
+
+def _bptt_plain(x, hs, gates_at, whh, wih, g, seq_cot, with_dx):
+    """The backward of both TPU kernels, step by step in plain PyTorch;
+    ``gates_at(t, hprev)`` gives ``(r, z, n, hn)`` at frame ``t``."""
+    N, T, D = x.shape
+    H = whh.shape[0]
+    xb = x.float().to(torch.bfloat16).float()
+    ones = xb.new_ones((N, 1))
+    dwih = xb.new_zeros((D + 1, 3 * H))  # last row: db_ih
+    dwhh = xb.new_zeros((H + 1, 3 * H))  # last row: db_hh
+    dx = xb.new_zeros((N, T, D)) if with_dx else None
+    dh = xb.new_zeros((N, H)) if seq_cot else g.float()
+    for t in reversed(range(T)):
+        hprev = hs[t - 1].float() if t > 0 else xb.new_zeros((N, H))
+        r, z, n, hn = gates_at(t, hprev)
+        if seq_cot:
+            dh = dh + g[:, t].float()
+        dn = dh * (1.0 - z)
+        dz = dh * (hprev - n)
+        dh_direct = dh * z
+        dn_pre = dn * (1.0 - n * n)
+        dr = dn_pre * hn
+        dhn = dn_pre * r
+        dr_pre = dr * r * (1.0 - r)
+        dz_pre = dz * z * (1.0 - z)
+        dxp = torch.cat([dr_pre, dz_pre, dn_pre], dim=1).to(torch.bfloat16).float()
+        dhp = torch.cat([dr_pre, dz_pre, dhn], dim=1).to(torch.bfloat16).float()
+        if with_dx:
+            dx[:, t] = dxp @ wih.T
+        dwih += torch.cat([xb[:, t], ones], dim=1).T @ dxp
+        dwhh += torch.cat([hprev, ones], dim=1).T @ dhp
+        dh = dh_direct + dhp @ whh.T
+    return dx, dwih[:D], dwih[D], dwhh[:H], dwhh[H]
+
+
+def gru_bwd_plain(x: torch.Tensor, hs: torch.Tensor, w_ih: torch.Tensor,
+                  b_ih: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                  g: torch.Tensor, *, seq_cot: bool = False, with_dx: bool = True):
+    """Plain PyTorch version of the v2 backward: reverse BPTT over ``x [N,
+    T, D]`` and the forward's ``hs [T, N, H]`` bf16, recomputing the gates
+    of every frame from ``hs[t-1]`` as the forward did. ``g`` is the
+    cotangent of ``h_last [N, H]``, or with ``seq_cot`` of every frame
+    ``[N, T, H]``. Returns ``(dx [N, T, D] or None, dW_ih [D, 3H], db_ih,
+    dW_hh [H, 3H], db_hh)`` in f32."""
+    _check(x, w_ih, b_ih, w_hh, b_hh)
+    xb = x.float().to(torch.bfloat16).float()
+    wih = w_ih.to(torch.bfloat16).float()
+    whh = w_hh.to(torch.bfloat16).float()
+
+    def gates_at(t, hprev):
+        return _gates_math(xb[:, t] @ wih + b_ih.float(), hprev @ whh + b_hh.float())
+
+    return _bptt_plain(x, hs, gates_at, whh, wih, g, seq_cot, with_dx)
+
+
+def gru_bwd_sg_plain(x: torch.Tensor, hs: torch.Tensor, gates: torch.Tensor,
+                     w_ih: torch.Tensor, w_hh: torch.Tensor, g: torch.Tensor, *,
+                     seq_cot: bool = False, with_dx: bool = True):
+    """Plain PyTorch version of the store-gates backward: as
+    :func:`gru_bwd_plain`, with the gates read from ``gates [T, N, 4H]``
+    bf16 instead of recomputed."""
+    H = w_hh.shape[0]
+    wih = w_ih.to(torch.bfloat16).float()
+    whh = w_hh.to(torch.bfloat16).float()
+
+    def gates_at(t, hprev):
+        return gates[t].float().split(H, dim=1)
+
+    return _bptt_plain(x, hs, gates_at, whh, wih, g, seq_cot, with_dx)
+
+
+def _bwd_cuda(name, grid_fn, launch_fn, x, hs, g, seq_cot, with_dx, w_ih, w_hh,
+              extra_ptrs):
+    """Shared launch of the two backward kernels: validates, allocates the
+    per-block partials and the packed result, launches, and splits."""
+    if x.dtype != torch.float32 or x.dim() != 3:
+        raise ValueError(f"x must be float32 [N, T, D], got {x.dtype} {tuple(x.shape)}")
+    N, T, D = x.shape
+    H = w_hh.shape[0]
+    dev = x.device
+    if tuple(hs.shape) != (T, N, H) or hs.dtype != torch.bfloat16 or hs.device != dev:
+        raise ValueError(f"hs must be bf16 [{T}, {N}, {H}] on {dev}")
+    want = (N, T, H) if seq_cot else (N, H)
+    if tuple(g.shape) != want:
+        raise ValueError(f"cotangent must be {want}, got {tuple(g.shape)}")
+    if x.stride(2) != 1:
+        x = x.contiguous()
+    hs = hs.contiguous()
+    g = g.to(dev, torch.float32)
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    g_sn, g_st = (g.stride(0), g.stride(1)) if seq_cot else (g.stride(0), 0)
+    rows = (H + 1) + (D + 1)
+    out = torch.zeros((rows, 3 * H), device=dev, dtype=torch.float32)
+    dx = torch.zeros((N, T, D), device=dev, dtype=torch.float32) if with_dx else None
+    if N > 0 and T > 0:
+        import ctypes
+
+        from . import _build
+
+        lib = _build.load()
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            code = getattr(lib, grid_fn)(N, D, H, ctypes.byref(blocks))
+            _build.check(lib, code, f"{name} grid (N={N}, D={D}, H={H})")
+            partial = torch.empty((blocks.value, rows, 3 * H), device=dev,
+                                  dtype=torch.float32)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            w_ih_b = w_ih.to(dev, torch.bfloat16).contiguous()
+            w_hh_b = w_hh.to(dev, torch.bfloat16).contiguous()
+            code = getattr(lib, launch_fn)(
+                x.data_ptr(), x.stride(0), x.stride(1), hs.data_ptr(),
+                *extra_ptrs(w_ih_b, w_hh_b, g, g_sn, g_st, int(seq_cot), N, T, D, H),
+                dx.data_ptr() if with_dx else None, partial.data_ptr(), blocks.value,
+                out.data_ptr(), stream)
+        _build.check(lib, code, f"{name} kernel (N={N}, T={T}, D={D}, H={H})")
+    return dx, out[H + 1:H + 1 + D], out[H + 1 + D], out[:H], out[H]
+
+
+def gru_bwd(x: torch.Tensor, hs: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
+            w_hh: torch.Tensor, b_hh: torch.Tensor, g: torch.Tensor, *,
+            seq_cot: bool = False, with_dx: bool = True):
+    """:func:`gru_bwd_plain`'s function: the ``csrc/gru_bwd.cu`` kernel for
+    CUDA tensors, the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return gru_bwd_plain(x, hs, w_ih, b_ih, w_hh, b_hh, g, seq_cot=seq_cot,
+                             with_dx=with_dx)
+    if x.device.type != "cuda":
+        raise ValueError(f"gru_bwd runs on CUDA or CPU tensors, got {x.device}")
+    _check(x, w_ih, b_ih, w_hh, b_hh)
+    dev = x.device
+    b_ih_f = b_ih.to(dev, torch.float32).contiguous()
+    b_hh_f = b_hh.to(dev, torch.float32).contiguous()
+
+    def ptrs(w_ih_b, w_hh_b, g, g_sn, g_st, seq, N, T, D, H):
+        return (g.data_ptr(), g_sn, g_st, seq, N, T, D, H, w_ih_b.data_ptr(),
+                b_ih_f.data_ptr(), w_hh_b.data_ptr(), b_hh_f.data_ptr())
+
+    res = _bwd_cuda("gru_bwd", "gru_bwd_grid", "gru_bwd_launch", x, hs, g, seq_cot,
+                    with_dx, w_ih, w_hh, ptrs)
+    if x.shape[0] > 0 and x.shape[1] > 0:
+        gru_bwd.launches += 1
+    return res
+
+
+gru_bwd.launches = 0
+
+
+def gru_bwd_sg(x: torch.Tensor, hs: torch.Tensor, gates: torch.Tensor,
+               w_ih: torch.Tensor, w_hh: torch.Tensor, g: torch.Tensor, *,
+               seq_cot: bool = False, with_dx: bool = True):
+    """:func:`gru_bwd_sg_plain`'s function: the ``csrc/gru_bwd_sg.cu``
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return gru_bwd_sg_plain(x, hs, gates, w_ih, w_hh, g, seq_cot=seq_cot,
+                                with_dx=with_dx)
+    if x.device.type != "cuda":
+        raise ValueError(f"gru_bwd_sg runs on CUDA or CPU tensors, got {x.device}")
+    N, T = x.shape[:2]
+    H = w_hh.shape[0]
+    if tuple(gates.shape) != (T, N, 4 * H) or gates.dtype != torch.bfloat16:
+        raise ValueError(f"gates must be bf16 [{T}, {N}, {4 * H}]")
+    gates = gates.contiguous()
+
+    def ptrs(w_ih_b, w_hh_b, g, g_sn, g_st, seq, N, T, D, H):
+        return (gates.data_ptr(), g.data_ptr(), g_sn, g_st, seq, N, T, D, H,
+                w_ih_b.data_ptr(), w_hh_b.data_ptr())
+
+    res = _bwd_cuda("gru_bwd_sg", "gru_bwd_sg_grid", "gru_bwd_sg_launch", x, hs, g,
+                    seq_cot, with_dx, w_ih, w_hh, ptrs)
+    if N > 0 and T > 0:
+        gru_bwd_sg.launches += 1
+    return res
+
+
+gru_bwd_sg.launches = 0
+
+
+def _fn_forward(ctx, x, w_ih, b_ih, w_hh, b_hh, store_gates):
+    """Forward of one GRU layer for autograd: ``hs [T, N, H]`` bf16, saving
+    ``x`` and ``hs`` (plus the gates for the store-gates pair)."""
+    if store_gates:
+        hs, gates = gru_fwd_sg(x, w_ih, b_ih, w_hh, b_hh)
+        ctx.save_for_backward(x, hs, gates, w_ih, b_ih, w_hh, b_hh)
+    else:
+        hs = gru_fwd(x, w_ih, b_ih, w_hh, b_hh, seq=True)
+        ctx.save_for_backward(x, hs, w_ih, b_ih, w_hh, b_hh)
+    ctx.store_gates = store_gates
+    return hs
+
+
+def _fn_backward(ctx, g, seq_cot):
+    with_dx = ctx.needs_input_grad[0]
+    if ctx.store_gates:
+        x, hs, gates, w_ih, b_ih, w_hh, b_hh = ctx.saved_tensors
+        grads = gru_bwd_sg(x, hs, gates, w_ih, w_hh, g, seq_cot=seq_cot, with_dx=with_dx)
+    else:
+        x, hs, w_ih, b_ih, w_hh, b_hh = ctx.saved_tensors
+        grads = gru_bwd(x, hs, w_ih, b_ih, w_hh, b_hh, g, seq_cot=seq_cot, with_dx=with_dx)
+    return (*grads, None)
+
+
+class GruLastFn(torch.autograd.Function):
+    """``h_last [N, H]`` f32 of one layer over ``x [N, T, D]``
+    (``gru_last_pallas``, or with ``store_gates`` ``gru_last_sg_pallas``):
+    the cotangent seeds the dh carry at the last frame."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih, b_ih, w_hh, b_hh, store_gates):
+        return _fn_forward(ctx, x, w_ih, b_ih, w_hh, b_hh, store_gates)[-1].float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _fn_backward(ctx, g, seq_cot=False)
+
+
+class GruSeqFn(torch.autograd.Function):
+    """``hs [N, T, H]`` f32 of one layer, a view with the last dimension
+    contiguous (``gru_seq_pallas``, or with ``store_gates``
+    ``gru_seq_sg_pallas``): the per-frame cotangent joins the dh carry at
+    every frame."""
+
+    @staticmethod
+    def forward(ctx, x, w_ih, b_ih, w_hh, b_hh, store_gates):
+        return _fn_forward(ctx, x, w_ih, b_ih, w_hh, b_hh, store_gates).float().transpose(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _fn_backward(ctx, g, seq_cot=True)
+
+
+def gru_last_forward(params: GRUParams, x: torch.Tensor, *,
+                     store_gates: bool = False) -> torch.Tensor:
+    """``h_last [N, H]`` of a GRU stack: lower layers emit their whole
+    sequence, which the next layer reads transposed; the top layer emits
+    only its final state. When autograd needs a gradient, each layer runs
+    through :class:`GruSeqFn` / :class:`GruLastFn` (``store_gates``: the v3
+    store-gates pair, ``gru_pallas.py:591``); otherwise through
+    :func:`gru_fwd` alone, which writes no gates."""
     layers = params.layers()
+    train = torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for layer in layers for p in layer))
     out = x
-    for w_ih, b_ih, w_hh, b_hh in layers[:-1]:
-        hs = gru_fwd(out, w_ih, b_ih, w_hh, b_hh, seq=True)
-        out = hs.float().transpose(0, 1)  # [N, T, H] view, last dim contiguous
-    w_ih, b_ih, w_hh, b_hh = layers[-1]
-    return gru_fwd(out, w_ih, b_ih, w_hh, b_hh)
+    if not train:
+        for w_ih, b_ih, w_hh, b_hh in layers[:-1]:
+            hs = gru_fwd(out, w_ih, b_ih, w_hh, b_hh, seq=True)
+            out = hs.float().transpose(0, 1)  # [N, T, H] view, last dim contiguous
+        return gru_fwd(out, *layers[-1])
+    for layer in layers[:-1]:
+        out = GruSeqFn.apply(out, *layer, store_gates)
+    return GruLastFn.apply(out, *layers[-1], store_gates)

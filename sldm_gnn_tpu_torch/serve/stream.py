@@ -29,7 +29,7 @@ from ..build.online import IncrementalGraphOnlineCreator
 from ..device import resolve_device
 from ..graph.batching import BatchDims, pad_and_batch
 from ..graph.containers import GraphArrays
-from ..interop import params_to_state_dict
+from ..interop import map_feat_dim, params_to_state_dict
 from ..models.grusage import GruSage
 from .snapshot import load_snapshot
 
@@ -59,13 +59,14 @@ class InferenceEngine:
         snap = load_snapshot(snapshot_path)
         self.config = snap["config"]
         self.pack_size = pack_size
-        self.model = GruSage(self.config)
+        self.model = GruSage(self.config, map_feat_dim=map_feat_dim(
+            snap["params"], self.config.mapenc_lane_embdim))
         self.model.load_state_dict(params_to_state_dict(snap["params"]))
         self.model.to(self.device).eval()
 
         def on_device(a):
             return None if a is None else torch.as_tensor(
-                np.asarray(a, np.float32), device=self.device)
+                np.array(a, np.float32), device=self.device)
 
         self.map_embeddings = on_device(snap["map_embeddings"])
         self.map_centroids = on_device(snap["map_centroids"])

@@ -29,10 +29,34 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
+TRAINING_SLICE = ["sldm_gnn_tpu_torch/train/loop.py", "sldm_gnn_tpu_torch/train/losses.py",
+                  "sldm_gnn_tpu_torch/train/snapshot.py", "sldm_gnn_tpu_torch/evals/metrics.py",
+                  "sldm_gnn_tpu_torch/models/map_modules.py"]
+
+
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "sldm_gnn_tpu_torch/ops/gru_cuda.py" in names
     assert "chip_smoke.py" in names
+    assert set(TRAINING_SLICE) <= names  # the scan covers the training slice
+
+
+def test_port_modules_import_with_jax_unavailable():
+    """Every module of the port imports in a fresh interpreter in which
+    importing jax, flax or the JAX package fails (transitive imports
+    included)."""
+    mods = [p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".")
+            for p in PORT_FILES if p.parent != ROOT]
+    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+    code = ("import sys\n"
+            f"for name in {sorted(FORBIDDEN)!r}: sys.modules[name] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print('imported', len(sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

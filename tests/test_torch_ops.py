@@ -184,3 +184,127 @@ def test_build_library_name_tracks_sources():
     assert p1.parent == _build.BUILD_DIR and p1.name.startswith("libsldm_kernels_")
     names = {p.name for p in _build.CSRC.glob("*.cu")}
     assert {"gru_fwd.cu", "knn_topk.cu"} <= names
+
+
+# ---- the GRU backward (v2 recompute, v3 store-gates) and the v3 forward ----
+#
+# The port's autograd Functions on CPU tensors run the plain versions of
+# the three training kernels; the JAX side runs gru_last_pallas /
+# gru_seq_pallas / gru_last_sg_pallas / gru_seq_sg_pallas in interpret
+# mode (rb=16: three row blocks over N=40, the last one ragged). Both
+# round dxp/dhp to bf16 before every product and sum in f32; they differ in
+# summation order, which can flip a bf16 rounding of a dxp/dhp value (or of
+# an hs value in the forward). Over 12 frames that stays far inside
+# 1e-2 * max|g|, the bound here (observed: <= 2.3e-4 * max|g|).
+GRAD_RTOL = 1e-2
+N_B, T_B, D_B, H_B = 40, 12, 6, 32
+
+
+def _bwd_case(rng, seed):
+    p = init_gru_params(jax.random.PRNGKey(seed), D_B, H_B, 1)
+    x = rng.standard_normal((N_B, T_B, D_B)).astype(np.float32)
+    return p, x
+
+
+@pytest.mark.parametrize("with_dx", [False, True])
+@pytest.mark.parametrize("form", ["last", "seq"])
+@pytest.mark.parametrize("store_gates", [False, True])
+def test_gru_backward_plain_matches_pallas(rng, form, store_gates, with_dx):
+    from sldm_gnn_tpu.ops.gru_pallas import gru_last_sg_pallas, gru_seq_sg_pallas
+
+    p, x = _bwd_case(rng, 7)
+    jfn = {("last", False): gru_last_pallas, ("last", True): gru_last_sg_pallas,
+           ("seq", False): gru_seq_pallas, ("seq", True): gru_seq_sg_pallas}[form, store_gates]
+    cot = rng.standard_normal((N_B, T_B, H_B) if form == "seq" else (N_B, H_B)
+                              ).astype(np.float32)
+    args = (jnp.asarray(x), p.w_ih0, p.b_ih0, p.w_hh0, p.b_hh0)
+    out_j, vjp = jax.vjp(lambda *a: jfn(*a, 16, True, with_dx), *args)
+    grads_j = vjp(jnp.asarray(cot))
+
+    ts = [_t(a).requires_grad_() for a in (x, p.w_ih0, p.b_ih0, p.w_hh0, p.b_hh0)]
+    ts[0].requires_grad_(with_dx)
+    fn = gru_cuda.GruSeqFn if form == "seq" else gru_cuda.GruLastFn
+    out = fn.apply(*ts, store_gates)
+    (out * _t(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), rtol=0,
+                               atol=BF16_GRU_ATOL)
+    names = ("dx", "dW_ih", "db_ih", "dW_hh", "db_hh")
+    for t, gj, name in zip(ts, grads_j, names):
+        gj = np.asarray(gj)
+        if name == "dx" and not with_dx:
+            assert t.grad is None  # skipped, as with_dx=False skips it
+            continue
+        np.testing.assert_allclose(t.grad.numpy(), gj, rtol=0,
+                                   atol=GRAD_RTOL * np.abs(gj).max(), err_msg=name)
+
+
+def test_gru_bwd_plain_skips_dx_without_changing_param_grads(rng):
+    """with_dx=False leaves the parameter gradients bit-equal (the JAX
+    package's claim, tests/test_gru_pallas.py:249), for both backwards."""
+    p, x = _bwd_case(rng, 8)
+    w = [_t(a) for a in (p.w_ih0, p.b_ih0, p.w_hh0, p.b_hh0)]
+    g = torch.from_numpy(rng.standard_normal((N_B, H_B)).astype(np.float32))
+    hs, gates = gru_cuda.gru_fwd_sg(_t(x), *w)
+    on = gru_cuda.gru_bwd(_t(x), hs, *w, g, with_dx=True)
+    off = gru_cuda.gru_bwd(_t(x), hs, *w, g, with_dx=False)
+    on_sg = gru_cuda.gru_bwd_sg(_t(x), hs, gates, w[0], w[2], g, with_dx=True)
+    off_sg = gru_cuda.gru_bwd_sg(_t(x), hs, gates, w[0], w[2], g, with_dx=False)
+    assert off[0] is None and off_sg[0] is None
+    assert on[0].shape == (N_B, T_B, D_B) and on[0].abs().max() > 0
+    for a, b in list(zip(on[1:], off[1:])) + list(zip(on_sg[1:], off_sg[1:])):
+        assert torch.equal(a, b)
+
+
+def _bf16_ulp(v: np.ndarray) -> np.ndarray:
+    """Spacing of bf16 values at |v| (8 significant bits)."""
+    _, e = np.frexp(np.abs(v).astype(np.float32))
+    return np.ldexp(np.float32(1.0), e - 8).astype(np.float32)
+
+
+def test_gru_fwd_sg_plain_matches_run_fwd3(rng):
+    from sldm_gnn_tpu.ops.gru_pallas import _run_fwd3
+
+    p, x = _bwd_case(rng, 9)
+    w = [_t(a) for a in (p.w_ih0, p.b_ih0, p.w_hh0, p.b_hh0)]
+    hs, gates = gru_cuda.gru_fwd_sg(_t(x), *w)
+    assert hs.dtype == gates.dtype == torch.bfloat16
+    assert hs.shape == (T_B, N_B, H_B) and gates.shape == (T_B, N_B, 4 * H_B)
+    # the v3 forward's hs is the v2 forward's, bit for bit
+    assert torch.equal(hs, gru_cuda.gru_fwd(_t(x), *w, seq=True))
+    xt = jnp.pad(jnp.moveaxis(jnp.asarray(x), 1, 0), ((0, 0), (0, 48 - N_B), (0, 0)))
+    hs_j, gates_j = _run_fwd3(xt, p.w_ih0.astype(jnp.bfloat16), p.b_ih0,
+                              p.w_hh0.astype(jnp.bfloat16), p.b_hh0, rb=16, interpret=True)
+    hs_j = np.asarray(hs_j[:, :N_B].astype(jnp.float32))
+    gates_j = np.asarray(gates_j[:, :N_B].astype(jnp.float32))
+    # XLA's dot sums in another order than torch's matmul, which can flip
+    # the rounding of a value that cancels to ~1e-5 (one element of 15360
+    # here): each value within one bf16 ulp, almost all bit-equal
+    for got, want in ((hs.float().numpy(), hs_j), (gates.float().numpy(), gates_j)):
+        diff = np.abs(got - want)
+        assert (diff <= _bf16_ulp(np.maximum(np.abs(got), np.abs(want)))).all()
+        assert (diff > 0).mean() < 1e-3
+
+
+def test_store_gates_only_when_a_gradient_is_needed(rng, monkeypatch):
+    """Without a gradient (eval, serving) the store-gates path runs the
+    plain forward and writes no gates; with one it runs the store-gates
+    forward and its backward, and never the plain forward."""
+    p, x = _bwd_case(rng, 10)
+    ws = [_t(a).requires_grad_() for a in (p.w_ih0, p.w_hh0, p.b_ih0, p.b_hh0)]
+    z = torch.zeros
+    params = GRUParams(*ws, z(0, H_B, 3 * H_B), z(0, H_B, 3 * H_B), z(0, 3 * H_B),
+                       z(0, 3 * H_B))
+
+    def refuse(*a, **k):
+        raise AssertionError("called")
+
+    with monkeypatch.context() as m, torch.no_grad():
+        m.setattr(gru_cuda, "gru_fwd_sg", refuse)
+        h_eval = gru_cuda.gru_last_forward(params, _t(x), store_gates=True)
+    with monkeypatch.context() as m:
+        m.setattr(gru_cuda, "gru_fwd", refuse)
+        m.setattr(gru_cuda, "gru_bwd", refuse)
+        h = gru_cuda.gru_last_forward(params, _t(x), store_gates=True)
+        h.sum().backward()
+    assert torch.equal(h.detach(), h_eval)
+    assert all(w.grad is not None and w.grad.abs().max() > 0 for w in ws)
