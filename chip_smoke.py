@@ -5,22 +5,31 @@
 
 Builds the port's CUDA kernels from ``sldm_gnn_tpu_torch/csrc`` with
 ``nvcc`` (one process per source, in parallel), holds each kernel against
-its plain PyTorch version on the card, and times kernel, plain version
-and one library call at the flagship shapes. Then it drives the port's two
-paths at the flagship width (``bench_flagship.py``'s GruSage: 100 frames,
-GRU hidden 96, FC1 96, SAGE 96x2, FC2 32, 4 labels, top-5 map attention,
-``knn_impl='pallas'``), with every launch count set to 0 just before a
-path and read just after it:
+its plain PyTorch version on the card (and two launches against each
+other, bit for bit), and times kernel, plain version and one library call
+at the main paths' shapes. Then it drives the port's paths, with every
+launch count set to 0 just before a path and read just after it:
 
-  * serving: a 120-frame wire stream through ``InferenceEngine``, from a
-    snapshot with random weights and 1000 baked map segments
-    (``gru_impl='pallas'``);
-  * training: ``build_step_fns`` on 2048 synthetic graphs of 8-11
+  * serving GruSage at the flagship width (``bench_flagship.py``: 100
+    frames, GRU hidden 96, FC1 96, SAGE 96x2, FC2 32, 4 labels, top-5 map
+    attention, ``knn_impl='pallas'``): a 120-frame wire stream through
+    ``InferenceEngine``, from a snapshot with random weights and 1000
+    baked map segments (``gru_impl='pallas'``);
+  * training GruSage: ``build_step_fns`` on 2048 synthetic graphs of 8-11
     vehicles with a live 1000-segment map, once with ``gru_impl=
     'pallas_sg'`` and once with ``'pallas'``: one step's gradients through
     the kernels against the same step through the plain versions, then 20
     steps with dropout 0.25; the trained ``'pallas_sg'`` model is saved
-    with baked map embeddings and serves the same stream.
+    with baked map embeddings and serves the same stream. The GRU backward
+    is also checked at H=128 (D=6 and D=128) and at D=96 with the
+    per-frame cotangent (the upper layer of a stack);
+  * bench.py's two-layer fused GraphSAGE step (``banded_residual+fused``:
+    200 000 nodes, 3.2M edges of reach 256, D=H=128, bf16, ReLU, tile 128,
+    K=12, count_cap 7): one step's gradients through the kernels against
+    the plain versions, then 20 steps (p50 ms/step and edges/s);
+  * ``BlockedSageClassifier((128, 128), num_classes=4)`` on the same graph,
+    20 Adam steps with ``fused_ln`` on the banded-residual layout and 20
+    unfused on the pure banded layout; the loss must fall.
 
 It prints its findings, a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -94,6 +103,26 @@ STEP_GRAD_FLOOR = 1e-6
 #  serving scores (sigmoid of the logits) of the kernel engine against the
 #  same engine on the plain versions, and against the f32 scan/topk engine
 SCORE_ATOL = 3e-2
+
+# bench.py's default (banded_residual+fused, BENCH_r05.json): a local graph
+# of 200 000 nodes with 16 in-edges each of reach 256 (make_local_graph),
+# D = H = 128, bf16 activations, tile 128, K = 12, count_cap 7
+BENCH_NODES = 200_000
+BENCH_DEG = 16
+BENCH_REACH = 256
+BENCH_DIM = 128
+BANDED_TILE = 128
+BANDED_K = 12
+COUNT_CAP = 7
+BENCH_STEPS = 20
+CLS_CLASSES = 4
+CLS_STEPS = 20
+#  banded kernels vs their plain versions: the same bf16 roundings, f32
+#  sums in another order, which can flip one bf16 rounding of an
+#  intermediate (the aggregate before @ Wl, t before dx and dW, an output
+#  at bf16): 2^-8 = 3.9e-3 relative of that value. max|err| / max|plain|
+#  within 1e-2, the CPU tests' bound against the Pallas interpret kernels.
+BANDED_REL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -313,6 +342,24 @@ def grad_errors(got, want) -> list[float]:
             for a, b in zip(got, want) if b is not None]
 
 
+def compare(name, kernel, plain, shape) -> float:
+    """A GRU backward kernel against its plain version (and two launches
+    against each other); returns the max abs error."""
+    got = kernel()
+    want = plain()
+    again = kernel()
+    torch.cuda.synchronize()
+    errs = grad_errors(got, want)
+    stable = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+    abs_err = max((a - b).abs().max().item() for a, b in zip(got, want) if b is not None)
+    log(f"{name} {shape}: max|err|/max|g| per output {['%.2e' % e for e in errs]} "
+        f"(tol {GRAD_RTOL}); two launches bit-equal {stable}")
+    if max(errs) > GRAD_RTOL or not stable or not all(
+            torch.isfinite(a).all() for a in got if a is not None):
+        raise AssertionError(f"{name} kernel disagrees with its plain version ({shape})")
+    return abs_err
+
+
 def check_gru_training_kernels(gru_cuda, gen, dev) -> list[dict]:
     """The store-gates forward and both backwards at the flagship shape
     (h_last cotangent, no dx: GruSage's use), with dx and the per-frame
@@ -340,21 +387,6 @@ def check_gru_training_kernels(gru_cuda, gen, dev) -> list[dict]:
         raise AssertionError("gru_fwd_sg kernel disagrees with its plain version")
     del hs_v2, hs_p, hs2, gates2
 
-    def compare(name, kernel, plain, shape):
-        got = kernel()
-        want = plain()
-        again = kernel()
-        torch.cuda.synchronize()
-        errs = grad_errors(got, want)
-        stable = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
-        abs_err = max((a - b).abs().max().item() for a, b in zip(got, want) if b is not None)
-        log(f"{name} {shape}: max|err|/max|g| per output {['%.2e' % e for e in errs]} "
-            f"(tol {GRAD_RTOL}); two launches bit-equal {stable}")
-        if max(errs) > GRAD_RTOL or not stable or not all(
-                torch.isfinite(a).all() for a in got if a is not None):
-            raise AssertionError(f"{name} kernel disagrees with its plain version ({shape})")
-        return abs_err
-
     shape = f"N={n} T={FRAMES} h_last, no dx"
     err_bwd = compare("gru_bwd", lambda: gru_cuda.gru_bwd(x, hs, *w, g, with_dx=False),
                       lambda: gru_cuda.gru_bwd_plain(x, hs, *w, g, with_dx=False), shape)
@@ -372,6 +404,18 @@ def check_gru_training_kernels(gru_cuda, gen, dev) -> list[dict]:
                 lambda: gru_cuda.gru_bwd_sg(xs, hs_s, gates_s, w[0], w[2], gs, seq_cot=seq),
                 lambda: gru_cuda.gru_bwd_sg_plain(xs, hs_s, gates_s, w[0], w[2], gs,
                                                   seq_cot=seq), shape)
+
+    # the backward with its partial dW_hh in shared memory (where it fits:
+    # the default at H=96) and in the workspace, in turns
+    placed = {True: [], False: []}
+    for dw in (True, False, False, True):
+        placed[dw].append((
+            timed(lambda: gru_cuda._gru_bwd(x, hs, *w, g, False, False, dw), iters=5)[0],
+            timed(lambda: gru_cuda._gru_bwd_sg(x, hs, gates, w[0], w[2], g, False, False, dw),
+                  iters=5)[0]))
+    for dw, label in ((True, "shared memory"), (False, "workspace (L2)")):
+        log(f"gru_bwd / gru_bwd_sg N={n} H={HIDDEN}, partial dW_hh in {label}: "
+            + ", ".join(f"{a:.4f} / {b:.4f} ms" for a, b in placed[dw]))
 
     # times at the flagship shape
     fwd_ms, fwd_host = timed(lambda: gru_cuda.gru_fwd_sg(x, *w), iters=10)
@@ -439,6 +483,71 @@ def check_gru_training_kernels(gru_cuda, gen, dev) -> list[dict]:
              plain_ms=sg_plain, bound_ms=sg_bound[0], bound_by=sg_bound[1],
              library_ms=lb32, **common),
     ]
+
+
+def check_gru_widths(gru_cuda, gen, dev) -> None:
+    """The GRU kernels at the widths a stack trains: the store-gates forward
+    and both backwards at H=128 (D=6 with h_last's cotangent; D=128 with the
+    per-frame one, the upper layer) and at D=96 (H=96, per-frame cotangent:
+    the upper layer of the flagship's stack), against their plain versions;
+    and the widest H each GRU kernel takes at D=6 and D=128."""
+    import ctypes
+
+    from sldm_gnn_tpu_torch.ops import _build
+
+    n = 2000
+    for d, h, seq in ((FEATURES, 128, False), (128, 128, True), (HIDDEN, HIDDEN, True)):
+        x = torch.randn((n, FRAMES, d), generator=gen).to(dev)
+        w = gru_weights(gen, d, h, dev)
+        hs, gates = gru_cuda.gru_fwd_sg(x, *w)
+        hs_p, _ = gru_cuda.gru_fwd_sg_plain(x, *w)
+        e = (hs.float() - hs_p.float()).abs().max().item()
+        log(f"gru_fwd_sg N={n} D={d} H={h}: hs max_abs_err {e:.3e} (tol {GRU_ATOL})")
+        if e > GRU_ATOL:
+            raise AssertionError(f"gru_fwd_sg disagrees with its plain version at D={d} H={h}")
+        gs = torch.randn((n, FRAMES, h) if seq else (n, h), generator=gen).to(dev)
+        shape = f"N={n} D={d} H={h} {'per-frame' if seq else 'h_last'} cotangent, with dx"
+        compare("gru_bwd", lambda: gru_cuda.gru_bwd(x, hs, *w, gs, seq_cot=seq),
+                lambda: gru_cuda.gru_bwd_plain(x, hs, *w, gs, seq_cot=seq), shape)
+        compare("gru_bwd_sg",
+                lambda: gru_cuda.gru_bwd_sg(x, hs, gates, w[0], w[2], gs, seq_cot=seq),
+                lambda: gru_cuda.gru_bwd_sg_plain(x, hs, gates, w[0], w[2], gs, seq_cot=seq),
+                shape)
+
+    def widest(takes, hi: int) -> int:
+        lo = 0
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if takes(mid) else (lo, mid - 1)
+        return lo
+
+    def fwd_takes(fn, d):
+        def takes(h):
+            try:
+                fn(torch.zeros((1, 1, d), device=dev), *gru_weights(gen, d, h, dev))
+            except RuntimeError as err:
+                if "shared memory" not in str(err) and "does not take" not in str(err):
+                    raise
+                return False
+            return True
+        return takes
+
+    lib = _build.load()
+
+    def bwd_takes(grid, d, dw_smem):
+        def takes(h):
+            place, blocks = ctypes.c_int(dw_smem), ctypes.c_int(0)
+            return getattr(lib, grid)(1, d, h, ctypes.byref(place), ctypes.byref(blocks)) == 0
+        return takes
+
+    out = []
+    for d in (FEATURES, 128):
+        out.append(f"D={d}: gru_fwd {widest(fwd_takes(gru_cuda.gru_fwd, d), 512)}, gru_fwd_sg "
+                   f"{widest(fwd_takes(gru_cuda.gru_fwd_sg, d), 512)}, gru_bwd "
+                   f"{widest(bwd_takes('gru_bwd_grid', d, -1), 341)} (partial dW_hh in shared "
+                   f"memory up to {widest(bwd_takes('gru_bwd_grid', d, 1), 341)}), gru_bwd_sg "
+                   f"{widest(bwd_takes('gru_bwd_sg_grid', d, -1), 341)}")
+    log("widest H each GRU kernel takes on this card: " + "; ".join(out))
 
 
 def write_snapshot(path: Path, gru_impl: str, knn_impl: str) -> None:
@@ -616,7 +725,11 @@ def synth_training_data(dev):
 
 COUNTED = {"gru_fwd": ("gru_cuda", "gru_fwd"), "gru_fwd_sg": ("gru_cuda", "gru_fwd_sg"),
            "gru_bwd": ("gru_cuda", "gru_bwd"), "gru_bwd_sg": ("gru_cuda", "gru_bwd_sg"),
-           "knn_topk": ("knn_ops", "knn_topk_fused")}
+           "knn_topk": ("knn_ops", "knn_topk_fused"),
+           "spmm_banded": ("spmm_banded", "spmm_banded"),
+           "banded_sage_fwd": ("sage_fused", "banded_sage_fwd"),
+           "banded_sage_bwd": ("sage_fused", "banded_sage_bwd"),
+           "banded_sage_ln_bwd": ("sage_fused", "banded_sage_ln_bwd")}
 
 
 def set_counts_to_zero(mods: dict) -> None:
@@ -707,14 +820,19 @@ def check_training(mods: dict, gru_impl: str, batch, md, dev, smi: str):
     if any(counts[k] != v for k, v in want.items()) or \
             sum(counts.values()) != sum(want.values()):
         raise AssertionError(f"train {gru_impl}: launches {counts}, want {want}")
-    profile_steps(fns, state, batch, card_gen, gru_impl)
+
+    def run_step():
+        nonlocal state
+        state, _ = fns.train_step(state, batch, card_gen)
+
+    profile_steps(run_step, gru_impl, GRU_KERNEL_KEYS)
     return model, counts
 
 
-def profile_steps(fns, state, batch, gen, gru_impl: str, steps: int = 3) -> None:
-    """Device time of `steps` training steps by kernel, from torch.profiler
-    (CUPTI): the GRU kernels, the KNN kernel, and the rest by name; and the
-    card's idle share of the window's wall time."""
+def profile_steps(run_step, label: str, keys: tuple[str, ...], steps: int = 3) -> None:
+    """Device time of `steps` calls of run_step() by kernel, from
+    torch.profiler (CUPTI): the port's kernels named in `keys`, the rest by
+    name; and the card's idle share of the window's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -723,26 +841,30 @@ def profile_steps(fns, state, batch, gen, gru_impl: str, steps: int = 3) -> None
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
-                state, _ = fns.train_step(state, batch, gen)
+                run_step()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     except RuntimeError as e:
-        log(f"profile {gru_impl}: not measured (torch.profiler failed: {e})")
+        log(f"profile {label}: not measured (torch.profiler failed: {e})")
         return
     busy = sum(e.self_device_time_total for e in events) / 1e3
     if busy <= 0:
-        log(f"profile {gru_impl}: not measured (no device time in the trace)")
+        log(f"profile {label}: not measured (no device time in the trace)")
         return
     groups: dict[str, float] = {}
     for e in events:
-        key = next((k for k in ("gru_fwd_kernel", "gru_bwd_kernel", "gru_bwd_reduce",
-                                "knn_topk_kernel") if k in e.key), e.key[:60])
+        key = next((k for k in keys if k in e.key), e.key[:60])
         groups[key] = groups.get(key, 0.0) + e.self_device_time_total / 1e3 / steps
     top = sorted(groups.items(), key=lambda kv: -kv[1])[:12]
-    log(f"profile {gru_impl}: {steps} steps, wall {wall / steps:.3f} ms/step, device busy "
+    log(f"profile {label}: {steps} steps, wall {wall / steps:.3f} ms/step, device busy "
         f"{busy / steps:.3f} ms/step (idle share {max(0.0, 1 - busy / wall):.3f}); device ms "
         f"per step by kernel: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
+
+
+GRU_KERNEL_KEYS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_bwd_reduce", "knn_topk_kernel")
+BANDED_KERNEL_KEYS = ("spmm_banded_kernel", "sage_fwd_kernel", "sage_bwd_kernel",
+                      "ln_bwd_prologue_kernel", "reduce_partials_kernel")
 
 
 def check_train_to_serve(mods: dict, model, md, tmp: Path, dev) -> None:
@@ -771,12 +893,389 @@ def check_train_to_serve(mods: dict, model, md, tmp: Path, dev) -> None:
         raise AssertionError(f"serving the trained snapshot skipped a kernel: {counts}")
 
 
+def make_local_graph(n: int, deg: int, *, reach: int = 256, seed: int = 0):
+    """bench.py's map-like graph: node ids follow spatial order, edges reach
+    nearby ids (a copy of bench.make_local_graph, which imports JAX)."""
+    rng = np.random.default_rng(seed)
+    dst = np.repeat(np.arange(n), deg)
+    src = np.clip(dst + rng.integers(-reach, reach + 1, n * deg), 0, n - 1)
+    return src.astype(np.int64), dst.astype(np.int64)
+
+
+def banded_layouts(mods: dict, dev):
+    """bench.py's graph as the banded-residual layout (count_cap 7) and as the
+    pure banded layout, built on the host and moved to the card."""
+    tsb, tbr = mods["spmm_banded"], mods["banded_residual"]
+    src, dst = make_local_graph(BENCH_NODES, BENCH_DEG, reach=BENCH_REACH)
+    t0 = time.perf_counter()
+    resid, n_pad = tbr.prepare_banded_residual_mean_aggregate(
+        src, dst, BENCH_NODES, tile=BANDED_TILE, k=BANDED_K, count_cap=COUNT_CAP)
+    t1 = time.perf_counter()
+    fwd, rev, _ = tsb.prepare_banded_mean_aggregate(src, dst, BENCH_NODES, tile=BANDED_TILE,
+                                                    k=BANDED_K)
+    t2 = time.perf_counter()
+    log(f"banded layouts of {BENCH_NODES} nodes, {len(src)} edges (n_pad {n_pad}, "
+        f"{fwd.num_dst_blocks} blocks): banded-residual built in {t1 - t0:.3f} s on the host "
+        f"(span {resid.banded_fwd.s_span}/{resid.banded_rev.s_span}, {len(resid.r_src)} "
+        f"residual edges, slots {resid.m_fwd}/{resid.m_rev} of {resid.steps} groups); pure "
+        f"banded in {t2 - t1:.3f} s (span {fwd.s_span}/{rev.s_span}, A "
+        f"{fwd.a.numel() / 1e6:.1f} MB a direction, max count {int(fwd.a.max())})")
+    return resid.to(dev), (fwd.to(dev), rev.to(dev)), n_pad, (src, dst)
+
+
+def mean_csr(src, dst, n_pad: int, dev, transpose: bool = False):
+    """The mean-aggregation matrix M[dst, src] = 1/deg(dst) as a CUDA CSR
+    (or its transpose): the library yardstick's operand."""
+    deg = np.bincount(dst, minlength=n_pad)
+    w = torch.from_numpy((1.0 / np.maximum(deg, 1))[dst].astype(np.float32))
+    rows, cols = (src, dst) if transpose else (dst, src)
+    idx = torch.from_numpy(np.stack([rows, cols]))
+    return torch.sparse_coo_tensor(idx, w, (n_pad, n_pad)).coalesce().to(dev).to_sparse_csr()
+
+
+def banded_cost(blocks, d: int, h: int, xbytes: int, kind: str, extra: float = 0.0):
+    """(bytes, operations) of one banded kernel call on these inputs: each
+    input read once, each output written once; the products of the dense
+    count tiles as the kernel does them."""
+    nb, s_span, t = blocks.num_dst_blocks, blocks.s_span, blocks.tile
+    n = nb * t
+    a = blocks.a.numel() * blocks.a.element_size() + n * 4  # tiles + 1/deg
+    if kind == "spmm":
+        return a + 2 * n * d * xbytes + extra, 2.0 * nb * s_span * t * t * d
+    w = 2 * d * h * xbytes
+    if kind == "fwd":
+        return (a + n * d * xbytes + n * h * xbytes + w + extra,
+                2.0 * nb * t * d * (s_span * t + 2 * h))
+    nbytes = a + n * h * xbytes + 2 * n * d * xbytes + w + 2 * d * h * 4 + extra
+    flops = 2.0 * nb * t * h * (s_span * t + 2 * d) + 4.0 * nb * t * d * h
+    if kind == "ln_bwd":
+        nbytes += n * h * xbytes + n * 4  # xhat, rstd
+    return nbytes, flops
+
+
+def banded_plain_versions(mods: dict):
+    """The four banded kernel wrappers replaced by their plain versions,
+    wherever the port's modules call them."""
+    from contextlib import ExitStack
+
+    stack = ExitStack()
+    tsb, tsf, tbr = mods["spmm_banded"], mods["sage_fused"], mods["banded_residual"]
+    stack.enter_context(mock.patch.object(tsb, "spmm_banded", tsb.spmm_banded_plain))
+    for name in ("banded_sage_fwd", "banded_sage_bwd", "banded_sage_ln_bwd"):
+        plain = getattr(tsf, f"{name}_plain")
+        for mod in (tsf, tbr):
+            if hasattr(mod, name):
+                stack.enter_context(mock.patch.object(mod, name, plain))
+    return stack
+
+
+def check_banded_kernels(mods: dict, resid, pure, graph, gen, dev) -> list[dict]:
+    """The four banded kernels against their plain versions at bench.py's
+    shape, on both layouts, with bf16 and f32 activations and weights, the
+    resid and ln options, and two launches bit-equal; then times of kernel,
+    plain version and library yardstick (bf16, the bench's dtype)."""
+    tsb, tsf, tbr = mods["spmm_banded"], mods["sage_fused"], mods["banded_residual"]
+    n_pad, d, h = resid.n_pad, BENCH_DIM, BENCH_DIM
+    errs = {k: 0.0 for k in ("spmm_banded", "banded_sage_fwd", "banded_sage_bwd",
+                             "banded_sage_ln_bwd")}
+
+    def relerr(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+    def compare(name, what, kernel, plain, rows=None):
+        """`rows`: the rows of the groups with a residual slot, held on their
+        own in every output with a row per node."""
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        got, again, want = (v if isinstance(v, tuple) else (v,) for v in (got, again, want))
+        rel = [relerr(a, b) for a, b in zip(got, want)]
+        stable = all(torch.equal(a, b) for a, b in zip(got, again))
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        rel_r = [] if rows is None else [relerr(a[rows], b[rows]) for a, b in zip(got, want)
+                                         if a.shape[0] == n_pad]
+        log(f"{name} {what}: max|err|/max|plain| per output {['%.2e' % e for e in rel]}"
+            + ("" if rows is None else f", on the {rows.numel()} rows of the residual groups "
+               f"{['%.2e' % e for e in rel_r]}")
+            + f" (tol {BANDED_REL}); two launches bit-equal {stable}")
+        if max(rel + rel_r) > BANDED_REL or not stable or \
+                not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError(f"{name} kernel disagrees with its plain version ({what})")
+        errs[name] = max(errs[name], err)
+
+    pf, pr = pure
+    rg_f, rg_r = resid.rg_fwd, resid.rg_rev
+    kt = resid.group_rows
+    rows_f, rows_r = ((torch.nonzero(rg > 0).flatten()[:, None] * kt
+                       + torch.arange(kt, device=rg.device)).flatten() for rg in (rg_f, rg_r))
+    log(f"residual groups: {rows_f.numel() // kt} of {rg_f.numel()} forward, "
+        f"{rows_r.numel() // kt} reverse ({kt} rows each)")
+    inputs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        x = torch.randn((n_pad, d), generator=gen).to(dev, dt)
+        g = torch.randn((n_pad, h), generator=gen).to(dev, dt)
+        wl, wr = ((torch.randn((d, h), generator=gen) * 0.05).to(dev, dt) for _ in range(2))
+        b = (torch.randn(h, generator=gen) * 0.1).to(dev, dt)
+        ln = ((1 + 0.2 * torch.randn(h, generator=gen)).to(dev, dt),
+              (0.1 * torch.randn(h, generator=gen)).to(dev, dt))
+        r_f = tbr.residual_fwd_compact(x, resid).to(dt)
+        r_r = tbr.residual_rev_compact(g, resid).to(dt)
+        inputs[name] = (x, g, wl, wr, b, ln, r_f, r_r)
+        for lay, what in ((pf, "forward layout"), (pr, "reverse layout (1/deg on x's rows)")):
+            compare("spmm_banded", f"{name} {what}", lambda: tsb.spmm_banded(x, lay),
+                    lambda: tsb.spmm_banded_plain(x, lay))
+        fw = dict(negative_slope=0.0, resid=(r_f, rg_f))
+        compare("banded_sage_fwd", f"{name} banded-residual, ReLU, no bias",
+                lambda: tsf.banded_sage_fwd(x, wl, wr, None, resid.banded_fwd, **fw),
+                lambda: tsf.banded_sage_fwd_plain(x, wl, wr, None, resid.banded_fwd, **fw),
+                rows_f)
+        fw = dict(negative_slope=0.1, resid=(r_f, rg_f), ln=ln)
+        compare("banded_sage_fwd", f"{name} banded-residual, bias, LN, LeakyReLU (out, xhat, rstd)",
+                lambda: tsf.banded_sage_fwd(x, wl, wr, b, resid.banded_fwd, **fw),
+                lambda: tsf.banded_sage_fwd_plain(x, wl, wr, b, resid.banded_fwd, **fw),
+                rows_f)
+        compare("banded_sage_fwd", f"{name} pure banded, bias, no activation",
+                lambda: tsf.banded_sage_fwd(x, wl, wr, b, pf),
+                lambda: tsf.banded_sage_fwd_plain(x, wl, wr, b, pf))
+        bw = dict(x=x, resid=(r_r, rg_r))
+        compare("banded_sage_bwd", f"{name} banded-residual with x (dx, dWl, dWr)",
+                lambda: tsf.banded_sage_bwd(g, wl, wr, resid.banded_rev, **bw),
+                lambda: tsf.banded_sage_bwd_plain(g, wl, wr, resid.banded_rev, **bw), rows_r)
+        compare("banded_sage_bwd", f"{name} pure banded without x (t, dx)",
+                lambda: tsf.banded_sage_bwd(g, wl, wr, pr),
+                lambda: tsf.banded_sage_bwd_plain(g, wl, wr, pr))
+        _, xhat, rstd = tsf.banded_sage_fwd(x, wl, wr, b, resid.banded_fwd, negative_slope=0.1,
+                                            resid=(r_f, rg_f), ln=ln)
+        for lay, rs, rows, what in ((resid.banded_rev, (r_r, rg_r), rows_r, "banded-residual"),
+                                    (pr, None, None, "pure banded")):
+            lw = dict(negative_slope=0.1, resid=rs)
+            compare("banded_sage_ln_bwd", f"{name} {what} (dx, dWl, dWr, dstats)",
+                    lambda: tsf.banded_sage_ln_bwd(g, xhat, rstd, wl, wr, *ln, lay, x, **lw),
+                    lambda: tsf.banded_sage_ln_bwd_plain(g, xhat, rstd, wl, wr, *ln, lay, x, **lw),
+                    rows)
+        del xhat, rstd
+    del inputs["f32"]
+    torch.cuda.empty_cache()
+
+    # times at bench.py's shape and dtype (bf16), with the library yardstick:
+    # cuSPARSE's CSR product by the mean-aggregation matrix (f32, on an f32
+    # copy of the inputs), plus the dense products and the epilogue
+    x, g, wl, wr, b, ln, r_f, r_r = inputs["bf16"]
+    _, xhat, rstd = tsf.banded_sage_fwd(x, wl, wr, b, resid.banded_fwd, negative_slope=0.1,
+                                        resid=(r_f, rg_f), ln=ln)
+    m_csr, mt_csr = (mean_csr(*graph, n_pad, dev, transpose=tr) for tr in (False, True))
+    x32, g32, wl32, wr32 = x.float(), g.float(), wl.float(), wr.float()
+    gam32, bet32 = ln[0].float(), ln[1].float()
+    xh32 = xhat.float()
+
+    def lib_bwd(gg):
+        t = torch.sparse.mm(mt_csr, gg)
+        return t @ wl32.T + gg @ wr32.T, x32.T @ t, x32.T @ gg
+
+    def lib_ln_bwd():
+        gt = torch.where(xh32 * gam32 + bet32 > 0, g32, 0.1 * g32)
+        gz = gt * gam32
+        dy = (gz - gz.mean(1, keepdim=True) - xh32 * (gz * xh32).mean(1, keepdim=True)) * rstd
+        return lib_bwd(dy), (gt * xh32).sum(0), gt.sum(0), dy.sum(0)
+
+    rb = r_f.numel() * 2
+    runs = [
+        ("spmm_banded", "sldm_gnn_tpu_torch/csrc/spmm_banded.cu",
+         "sldm_gnn_tpu/ops/spmm_banded.py:478", "pure banded forward layout, bf16",
+         lambda: tsb.spmm_banded(x, pf), lambda: tsb.spmm_banded_plain(x, pf),
+         lambda: torch.sparse.mm(m_csr, x32), banded_cost(pf, d, h, 2, "spmm")),
+        ("banded_sage_fwd", "sldm_gnn_tpu_torch/csrc/sage_fused_fwd.cu",
+         "sldm_gnn_tpu/ops/sage_fused.py:283", "banded-residual, bf16, ReLU, no bias",
+         lambda: tsf.banded_sage_fwd(x, wl, wr, None, resid.banded_fwd, negative_slope=0.0,
+                                     resid=(r_f, rg_f)),
+         lambda: tsf.banded_sage_fwd_plain(x, wl, wr, None, resid.banded_fwd,
+                                           negative_slope=0.0, resid=(r_f, rg_f)),
+         lambda: torch.relu(torch.sparse.mm(m_csr, x32) @ wl32 + x32 @ wr32),
+         banded_cost(resid.banded_fwd, d, h, 2, "fwd", rb)),
+        ("banded_sage_bwd", "sldm_gnn_tpu_torch/csrc/sage_fused_bwd.cu",
+         "sldm_gnn_tpu/ops/sage_fused.py:554", "banded-residual with x, bf16",
+         lambda: tsf.banded_sage_bwd(g, wl, wr, resid.banded_rev, x=x, resid=(r_r, rg_r)),
+         lambda: tsf.banded_sage_bwd_plain(g, wl, wr, resid.banded_rev, x=x,
+                                           resid=(r_r, rg_r)),
+         lambda: lib_bwd(g32), banded_cost(resid.banded_rev, d, h, 2, "bwd", rb)),
+        ("banded_sage_ln_bwd", "sldm_gnn_tpu_torch/csrc/sage_fused_bwd.cu",
+         "sldm_gnn_tpu/ops/sage_fused.py:905", "banded-residual, bf16, LeakyReLU 0.1",
+         lambda: tsf.banded_sage_ln_bwd(g, xhat, rstd, wl, wr, *ln, resid.banded_rev, x,
+                                        negative_slope=0.1, resid=(r_r, rg_r)),
+         lambda: tsf.banded_sage_ln_bwd_plain(g, xhat, rstd, wl, wr, *ln, resid.banded_rev, x,
+                                              negative_slope=0.1, resid=(r_r, rg_r)),
+         lib_ln_bwd, banded_cost(resid.banded_rev, d, h, 2, "ln_bwd", rb)),
+    ]
+    entries = []
+    for name, source, replaces, shape, kernel, plain, library, cost in runs:
+        ms, host = timed(kernel, iters=10)
+        plain_ms, _ = timed(plain, iters=3, warmup=1)
+        library_ms, _ = timed(library, iters=10)
+        bound_ms, bound_by = bound(*cost, PEAK_BF16_FLOP_S)
+        log(f"{name} timing ({shape}): kernel {ms:.4f} ms (host issue {host:.4f}), plain "
+            f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.1f} GFLOP)")
+        entries.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                            shape=f"N={n_pad} D=H={d} {shape}", max_abs_err=errs[name], ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms))
+    return entries
+
+
+def step_grad_excess(label: str, names, got, want) -> float:
+    """Holds one step's gradients through the kernels against the plain
+    versions' at rtol STEP_GRAD_TOL + STEP_GRAD_TOL * (max|g| +
+    STEP_GRAD_FLOOR); returns the largest excess over that scale."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, b in zip(names, got, want):
+        scale = b.float().abs().max().item() + STEP_GRAD_FLOOR
+        excess = ((a.float() - b.float()).abs() - STEP_GRAD_TOL * b.float().abs()).max().item()
+        worst = max(worst, excess / scale)
+        if not torch.isfinite(a).all() or excess / scale > STEP_GRAD_TOL:
+            raise AssertionError(f"{label}: gradient of {name} through the kernels disagrees "
+                                 f"with the plain versions ({excess / scale:.3e})")
+    return worst
+
+
+def check_bench_step(mods: dict, resid, n_edges: int, dev, smi: str) -> dict:
+    """bench.py's loss_pallas_fused step (bench.py:485-498, bench_step
+    :106-109): two banded_residual_sage_apply layers, bf16, ReLU, no bias,
+    loss sum(h.float()), gradients of the f32 params and the bf16 x, and the
+    p - 1e-9 g update. One step's gradients through the kernels against the
+    plain versions, then BENCH_STEPS timed steps."""
+    tbr = mods["banded_residual"]
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(1)
+    n_pad, d = resid.n_pad, BENCH_DIM
+    x = torch.from_numpy(rng.standard_normal((n_pad, d)).astype(np.float32)).to(dev, bf16)
+    keys = ("w0a", "w0b", "w1a", "w1b")
+    params = {k: torch.from_numpy(rng.standard_normal((d, d)).astype(np.float32) * 0.05).to(dev)
+              for k in keys}
+
+    def grads(params, x):
+        ps = [params[k].detach().requires_grad_() for k in keys]
+        xg = x.detach().requires_grad_()
+        p = [v.to(bf16) for v in ps]
+        h = tbr.banded_residual_sage_apply(xg, p[0], p[1], None, resid, True, 0.0)
+        h = tbr.banded_residual_sage_apply(h, p[2], p[3], None, resid, True, 0.0)
+        loss = h.float().sum()
+        return loss, torch.autograd.grad(loss, [*ps, xg])
+
+    def step(params, x):
+        _, gs = grads(params, x)
+        return ({k: params[k] - 1e-9 * gk for k, gk in zip(keys, gs)},
+                (x - 1e-9 * gs[-1]).to(bf16))
+
+    loss_k, g_k = grads(params, x)
+    with banded_plain_versions(mods):
+        loss_p, g_p = grads(params, x)
+    worst = step_grad_excess("bench step", (*keys, "x"), g_k, g_p)
+    log(f"bench step (banded_residual+fused, bf16): loss {loss_k.item():.6e} through the kernels "
+        f"vs {loss_p.item():.6e} through the plain versions; gradients of w0a..w1b and x within "
+        f"rtol {STEP_GRAD_TOL} + {STEP_GRAD_TOL} * (max|g| + {STEP_GRAD_FLOOR}) (largest excess "
+        f"{worst:.3e} of that scale)")
+
+    set_counts_to_zero(mods)
+    times = []
+    for _ in range(BENCH_STEPS):
+        t0 = time.perf_counter()
+        params, x = step(params, x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts(mods)
+    p50 = float(np.median(times))
+    log(f"bench step: {BENCH_STEPS} steps, p50 {p50:.3f} ms/step, {n_edges / (p50 / 1e3):.4e} "
+        f"edges/s ({n_edges} edges; first step {times[0]:.3f} ms), launches {counts}, on {smi}")
+    want = {"banded_sage_fwd": 2 * BENCH_STEPS, "banded_sage_bwd": 2 * BENCH_STEPS}
+    if any(counts[k] != v for k, v in want.items()) or \
+            sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"bench step: launches {counts}, want {want}")
+    if not all(torch.isfinite(v).all() for v in params.values()):
+        raise AssertionError("bench step: a parameter is not finite")
+    state = [params, x]
+
+    def run_step():
+        state[0], state[1] = step(*state)
+
+    profile_steps(run_step, "bench step", BANDED_KERNEL_KEYS)
+    return counts
+
+
+def check_classifier(mods: dict, layout, n_pad: int, mode: dict, label: str, want: dict,
+                     dev) -> dict:
+    """BlockedSageClassifier((128, 128), num_classes=4, negative_slope=0.1)
+    over `layout` (forward, reverse): features and labels from numpy with
+    SEED (the label adds 1 to its feature), random weights from SEED, Adam
+    (lr 1e-2) on cross-entropy for CLS_STEPS steps. The first loss through
+    the kernels agrees with the plain versions', every loss is finite, the
+    last is below the first, and the launches are `want` per step. Before
+    training, the first step's logits through the kernels are held against
+    the plain versions' (max|err| / max|logit| within BANDED_REL) and its
+    parameter gradients at STEP_GRAD_TOL."""
+    from sldm_gnn_tpu_torch.models.blocked_sage import BlockedSageClassifier
+
+    rng = np.random.default_rng(SEED)
+    y = rng.integers(0, CLS_CLASSES, BENCH_NODES)
+    x = np.zeros((n_pad, BENCH_DIM), np.float32)
+    x[:BENCH_NODES] = rng.standard_normal((BENCH_NODES, BENCH_DIM)) * 0.5
+    x[np.arange(BENCH_NODES), y] += 1.0
+    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    torch.manual_seed(SEED)
+    model = BlockedSageClassifier((BENCH_DIM, BENCH_DIM), num_classes=CLS_CLASSES,
+                                  in_features=BENCH_DIM, negative_slope=0.1, **mode).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    lossf = torch.nn.functional.cross_entropy
+    names = [k for k, _ in model.named_parameters()]
+
+    def first_step():
+        logits = model(x, *layout, n_pad)
+        loss = lossf(logits[:BENCH_NODES], y)
+        return logits.detach(), loss.item(), torch.autograd.grad(loss, list(model.parameters()))
+
+    logits_k, first_k, g_k = first_step()
+    with banded_plain_versions(mods):
+        logits_p, first_p, g_p = first_step()
+    rel = ((logits_k - logits_p).abs().max() / logits_p.abs().max()).item()
+    if not torch.isfinite(logits_k).all() or rel > BANDED_REL:
+        raise AssertionError(f"classifier {label}: logits through the kernels disagree with "
+                             f"the plain versions' ({rel:.3e} of max|logit|)")
+    worst = step_grad_excess(f"classifier {label}", names, g_k, g_p)
+    del logits_k, logits_p, g_k, g_p
+    set_counts_to_zero(mods)
+    losses, times = [], []
+    for _ in range(CLS_STEPS):
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = lossf(model(x, *layout, n_pad)[:BENCH_NODES], y)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts(mods)
+    losses = torch.stack(losses).cpu().numpy()
+    log(f"classifier {label}: first step through the kernels vs the plain versions: logits "
+        f"max|err|/max|logit| {rel:.3e} (tol {BANDED_REL}), loss {first_k:.6f} vs "
+        f"{first_p:.6f}, gradients of {len(names)} parameters within rtol {STEP_GRAD_TOL} + "
+        f"{STEP_GRAD_TOL} * (max|g| + {STEP_GRAD_FLOOR}) (largest excess {worst:.3e}); "
+        f"{CLS_STEPS} Adam steps, losses {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}, p50 {np.median(times):.3f} ms/step, launches {counts}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"classifier {label}: the loss did not fall: {losses}")
+    want = {k: v * CLS_STEPS for k, v in want.items()}
+    if any(counts[k] != v for k, v in want.items()) or \
+            sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"classifier {label}: launches {counts}, want {want}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
               file=sys.stderr)
         return 2
-    from sldm_gnn_tpu_torch.ops import _build, gru_cuda
+    from sldm_gnn_tpu_torch.ops import _build, banded_residual, gru_cuda, sage_fused, spmm_banded
     from sldm_gnn_tpu_torch.ops import knn as knn_ops
 
     t_start = time.perf_counter()
@@ -800,9 +1299,11 @@ def main() -> int:
     for e in entries:
         e["path"] = "serve"
     train_entries = check_gru_training_kernels(gru_cuda, gen, dev)
+    check_gru_widths(gru_cuda, gen, dev)
     torch.cuda.empty_cache()
 
-    mods = {"gru_cuda": gru_cuda, "knn_ops": knn_ops}
+    mods = {"gru_cuda": gru_cuda, "knn_ops": knn_ops, "spmm_banded": spmm_banded,
+            "sage_fused": sage_fused, "banded_residual": banded_residual}
     with tempfile.TemporaryDirectory() as tmp:
         launches = check_serving(gru_cuda, knn_ops, Path(tmp), dev)
         for e in entries:
@@ -816,6 +1317,28 @@ def main() -> int:
     for e in train_entries:
         e["launches"] = (counts_sg if e["name"].endswith("_sg") else counts_v2)[e["name"]]
     entries += train_entries
+    del model_sg, md
+    torch.cuda.empty_cache()
+
+    resid, pure, n_pad, graph = banded_layouts(mods, dev)
+    banded_entries = check_banded_kernels(mods, resid, pure, graph, gen, dev)
+    torch.cuda.empty_cache()
+    counts_bench = check_bench_step(mods, resid, len(graph[0]), dev, smi)
+    counts_ln = check_classifier(mods, (resid, None), n_pad, dict(fused=True, fused_ln=True),
+                                 "fused_ln, banded-residual",
+                                 {"banded_sage_fwd": 2, "banded_sage_ln_bwd": 2}, dev)
+    # the first layer's input needs no gradient, so its aggregation runs no
+    # backward: two forward and one reverse launch a step
+    counts_unfused = check_classifier(mods, pure, n_pad, {}, "unfused, pure banded",
+                                      {"spmm_banded": 3}, dev)
+    launch_of = {"spmm_banded": ("classifier unfused", counts_unfused),
+                 "banded_sage_fwd": ("bench step", counts_bench),
+                 "banded_sage_bwd": ("bench step", counts_bench),
+                 "banded_sage_ln_bwd": ("classifier fused_ln", counts_ln)}
+    for e in banded_entries:
+        e["path"], counts = launch_of[e["name"]]
+        e["launches"] = counts[e["name"]]
+    entries += banded_entries
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -9,15 +9,15 @@
 // cores' 989 TFLOP/s); this kernel runs them on the f32 FMA units.
 #include "gru_bwd.cuh"
 
-extern "C" int gru_bwd_grid(int N, int D, int H, int* blocks) {
-  return bwd_grid<false>(N, D, H, blocks);
+extern "C" int gru_bwd_grid(int N, int D, int H, int* dw_smem, int* blocks) {
+  return bwd_grid<false>(N, D, H, dw_smem, blocks);
 }
 
 extern "C" int gru_bwd_launch(const void* x, int64_t xsn, int64_t xst, const void* hs,
                               const void* g, int64_t gsn, int64_t gst, int seq_cot, int N, int T,
                               int D, int H, const void* w_ih, const void* b_ih, const void* w_hh,
-                              const void* b_hh, void* dx, void* partial, int blocks, void* out,
-                              void* stream) {
+                              const void* b_hh, void* dx, void* partial, int dw_smem, int blocks,
+                              void* out, void* stream) {
   return bwd_launch<false>(x, xsn, xst, hs, nullptr, g, gsn, gst, seq_cot, N, T, D, H, w_ih, b_ih,
-                           w_hh, b_hh, dx, partial, blocks, out, stream);
+                           w_hh, b_hh, dx, partial, dw_smem, blocks, out, stream);
 }

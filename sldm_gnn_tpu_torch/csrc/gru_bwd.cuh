@@ -33,13 +33,16 @@
 //      dxp @ W_ih^T.
 // Shared memory: W_hh as bf16 pairs along k with an odd row stride (both
 // the row-wise reads of phase A and the column-wise reads of phase B are
-// free of bank conflicts), the block's partial dW_hh and db_hh in f32
-// ((H+1) x 3H, 112 KB at H=96), the 24-row tiles of hprev and x transposed,
-// and the rounded dhp/dxp of the step: 198 KB at H=96, D=6, so one block a
-// SM. The partial dW_ih and db_ih ((D+1) x 3H) live in the block's slice of
-// the device workspace (L2), updated by their owner threads each step. The
-// cap is H = 104 at D=6 (227 KB); a wider H is refused at launch. All
-// products run on the f32 FMA units; the tensor cores are later work.
+// free of bank conflicts), the 24-row tiles of hprev and x transposed, and
+// the rounded dhp/dxp of the step. The block's partial dW_hh + db_hh
+// ((H+1) x 3H f32) and dW_ih + db_ih ((D+1) x 3H) live in its slice of the
+// device workspace (L2), each column updated only by its owner thread, so
+// the shared memory holds no partial: 86 KB at H=96, D=6 (two blocks a
+// SM), 139 KB at H=128, D=6 and 151 KB at H=128, D=128. kDwSmem keeps the
+// partial dW_hh + db_hh in shared memory instead (198 KB at H=96, one
+// block a SM; it fits up to H=104 at D=6); bwd_grid takes it where it
+// fits, for widths at which it is faster (PERF.md). All products run on
+// the f32 FMA units; the tensor cores are later work.
 //
 // What bounds it on the H100, at the flagship shape (N=19558, T=100, D=6,
 // H=96, no dx): the v2 backward does ~174 kFLOP of bf16 products per row and
@@ -73,13 +76,13 @@ __host__ __device__ inline size_t align16(size_t v) { return (v + 15) & ~static_
 // Byte offsets of the shared-memory regions.
 struct BwdSmem {
   size_t whh2, dws, bih, bhh, hpT, xT, dhp, dnx, total;
-  __host__ __device__ BwdSmem(int D, int H) {
+  __host__ __device__ BwdSmem(int D, int H, bool dw_smem) {
     const size_t H3 = 3 * static_cast<size_t>(H);
     const size_t Hh = (H + 1) / 2;
     const size_t ldh = (H3 + 7) & ~static_cast<size_t>(7);
     whh2 = 0;
     dws = align16(whh2 + 4 * Hh * (ldh + 1));       // W_hh pairs [Hh, ldh + 1]
-    bih = align16(dws + 4 * (H + 1) * H3);           // partial dW_hh + db_hh [(H+1), 3H]
+    bih = align16(dws + (dw_smem ? 4 * (H + 1) * H3 : 0));  // dW_hh + db_hh [(H+1), 3H]
     bhh = align16(bih + 4 * H3);
     hpT = align16(bhh + 4 * H3);
     xT = align16(hpT + 4 * 2 * Hh * kBwdRows);       // hprev^T [Hp, rows]
@@ -98,9 +101,10 @@ __device__ __forceinline__ void unpack8(const uint4 v, float* f) {
   }
 }
 
-// partial: [gridDim.x, (H+1) + (D+1), 3H] f32 workspace; this block writes
+// partial: [gridDim.x, (H+1) + (D+1), 3H] f32 workspace; this block owns
 // its slice: rows [0, H) dW_hh, H db_hh, [H+1, H+1+D) dW_ih, H+1+D db_ih.
-template <bool kStored>
+// kDwSmem sums rows [0, H] in shared memory and copies them there at the end.
+template <bool kStored, bool kDwSmem>
 __global__ void gru_bwd_kernel(const float* __restrict__ x, int64_t xsn, int64_t xst,
                                const __nv_bfloat16* __restrict__ hs,
                                const __nv_bfloat16* __restrict__ gates,
@@ -112,14 +116,15 @@ __global__ void gru_bwd_kernel(const float* __restrict__ x, int64_t xsn, int64_t
                                const float* __restrict__ b_hh, float* __restrict__ dx,
                                float* __restrict__ partial, int num_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const BwdSmem L(D, H);
+  const BwdSmem L(D, H, kDwSmem);
   const int H3 = 3 * H;
   const int Hh = (H + 1) / 2;
   const int Hp = 2 * Hh;
   const int ldh = (H3 + 7) & ~7;
   const int ldw = ldh + 1;  // odd: conflict-free column reads
   __nv_bfloat162* whh2 = reinterpret_cast<__nv_bfloat162*>(smem + L.whh2);
-  float* dws = reinterpret_cast<float*>(smem + L.dws);
+  const size_t slice = static_cast<size_t>(H + D + 2) * 3 * H;
+  float* dws = kDwSmem ? reinterpret_cast<float*>(smem + L.dws) : partial + blockIdx.x * slice;
   float* bih = reinterpret_cast<float*>(smem + L.bih);
   float* bhh = reinterpret_cast<float*>(smem + L.bhh);
   float* hpT = reinterpret_cast<float*>(smem + L.hpT);
@@ -131,7 +136,6 @@ __global__ void gru_bwd_kernel(const float* __restrict__ x, int64_t xsn, int64_t
   const int r0 = threadIdx.y * kBwdRowsPerThread;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;  // also the gate column c
   const int nthr = blockDim.x * blockDim.y;                 // == 3H
-  const size_t slice = static_cast<size_t>(H + D + 2) * H3;
   float* pih = partial + blockIdx.x * slice + static_cast<size_t>(H + 1) * H3;
 
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
@@ -142,7 +146,7 @@ __global__ void gru_bwd_kernel(const float* __restrict__ x, int64_t xsn, int64_t
         (c < H3 && 2 * kk + 1 < H) ? w_hh[static_cast<size_t>(2 * kk + 1) * H3 + c] : zero;
     whh2[e] = __halves2bfloat162(lo, hi);
   }
-  for (int e = tid; e < (H + 1) * H3; e += nthr) dws[e] = 0.0f;
+  for (int q = 0; q <= H; ++q) dws[static_cast<size_t>(q) * H3 + tid] = 0.0f;
   if (!kStored) {
     for (int e = tid; e < H3; e += nthr) {
       bih[e] = b_ih[e];
@@ -359,8 +363,10 @@ __global__ void gru_bwd_kernel(const float* __restrict__ x, int64_t xsn, int64_t
     }
   }
 
-  float* phh = partial + blockIdx.x * slice;
-  for (int e = tid; e < (H + 1) * H3; e += nthr) phh[e] = dws[e];
+  if (kDwSmem) {
+    float* phh = partial + blockIdx.x * slice;
+    for (int q = 0; q <= H; ++q) phh[static_cast<size_t>(q) * H3 + tid] = dws[q * H3 + tid];
+  }
 }
 
 // out[e] = sum over blocks b, in order, of partial[b, e]
@@ -373,24 +379,27 @@ __global__ void gru_bwd_reduce_kernel(const float* __restrict__ partial, int nbl
   out[e] = s;
 }
 
-// Blocks of the persistent grid: one per free SM slot, at most one per tile.
+// Blocks of the persistent grid: one per free SM slot, at most one per
+// tile. *dw_smem: -1 picks the shared-memory partial where it fits, else
+// the workspace one; on return it holds the placement taken (0 or 1).
 template <bool kStored>
-int bwd_grid(int N, int D, int H, int* blocks) {
+int bwd_grid(int N, int D, int H, int* dw_smem, int* blocks) {
   if (N <= 0 || D <= 0 || H <= 0 || 3 * H > 1024) return SLDM_ERR_SHAPE;
-  const size_t smem = BwdSmem(D, H).total;
   int dev = 0, smem_max = 0, sms = 0, occ = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
+  if (*dw_smem < 0) *dw_smem = BwdSmem(D, H, true).total <= static_cast<size_t>(smem_max);
+  const size_t smem = BwdSmem(D, H, *dw_smem != 0).total;
   if (smem > static_cast<size_t>(smem_max)) return SLDM_ERR_SMEM;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(gru_bwd_kernel<kStored>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = *dw_smem ? gru_bwd_kernel<kStored, true> : gru_bwd_kernel<kStored, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, gru_bwd_kernel<kStored>, 3 * H,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, 3 * H, smem);
   if (err != cudaSuccess) return err;
   if (occ <= 0) return SLDM_ERR_SMEM;
   const int tiles = (N + kBwdRows - 1) / kBwdRows;
@@ -398,20 +407,22 @@ int bwd_grid(int N, int D, int H, int* blocks) {
   return 0;
 }
 
-// partial: [blocks, (H+1)+(D+1), 3H] f32 scratch, blocks from bwd_grid;
-// out: [(H+1)+(D+1), 3H] f32 = dW_hh | db_hh | dW_ih | db_ih.
+// partial: [blocks, (H+1)+(D+1), 3H] f32 scratch, blocks and dw_smem from
+// bwd_grid; out: [(H+1)+(D+1), 3H] f32 = dW_hh | db_hh | dW_ih | db_ih.
 template <bool kStored>
 int bwd_launch(const void* x, int64_t xsn, int64_t xst, const void* hs, const void* gates,
                const void* g, int64_t gsn, int64_t gst, int seq_cot, int N, int T, int D, int H,
                const void* w_ih, const void* b_ih, const void* w_hh, const void* b_hh, void* dx,
-               void* partial, int blocks, void* out, void* stream) {
-  int want = 0;
-  const int code = bwd_grid<kStored>(N, D, H, &want);
+               void* partial, int dw_smem, int blocks, void* out, void* stream) {
+  int want = 0, place = dw_smem;
+  if (place != 0 && place != 1) return SLDM_ERR_SHAPE;
+  const int code = bwd_grid<kStored>(N, D, H, &place, &want);
   if (code != 0) return code;
   if (T <= 0 || blocks != want) return SLDM_ERR_SHAPE;
-  const size_t smem = BwdSmem(D, H).total;
+  const size_t smem = BwdSmem(D, H, place != 0).total;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gru_bwd_kernel<kStored><<<blocks, dim3(H, kBwdRowGroups), smem, s>>>(
+  auto kernel = place ? gru_bwd_kernel<kStored, true> : gru_bwd_kernel<kStored, false>;
+  kernel<<<blocks, dim3(H, kBwdRowGroups), smem, s>>>(
       static_cast<const float*>(x), xsn, xst, static_cast<const __nv_bfloat16*>(hs),
       static_cast<const __nv_bfloat16*>(gates), static_cast<const float*>(g), gsn, gst, seq_cot,
       N, T, D, H, static_cast<const __nv_bfloat16*>(w_ih), static_cast<const float*>(b_ih),

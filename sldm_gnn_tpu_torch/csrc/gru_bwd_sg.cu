@@ -9,16 +9,16 @@
 // bytes (1.9 GB of gates, hs and x, 0.58 ms at 3.35 TB/s).
 #include "gru_bwd.cuh"
 
-extern "C" int gru_bwd_sg_grid(int N, int D, int H, int* blocks) {
-  return bwd_grid<true>(N, D, H, blocks);
+extern "C" int gru_bwd_sg_grid(int N, int D, int H, int* dw_smem, int* blocks) {
+  return bwd_grid<true>(N, D, H, dw_smem, blocks);
 }
 
 extern "C" int gru_bwd_sg_launch(const void* x, int64_t xsn, int64_t xst, const void* hs,
                                  const void* gates, const void* g, int64_t gsn, int64_t gst,
                                  int seq_cot, int N, int T, int D, int H, const void* w_ih,
-                                 const void* w_hh, void* dx, void* partial, int blocks, void* out,
-                                 void* stream) {
+                                 const void* w_hh, void* dx, void* partial, int dw_smem,
+                                 int blocks, void* out, void* stream) {
   if (gates == nullptr) return SLDM_ERR_SHAPE;
   return bwd_launch<true>(x, xsn, xst, hs, gates, g, gsn, gst, seq_cot, N, T, D, H, w_ih, nullptr,
-                          w_hh, nullptr, dx, partial, blocks, out, stream);
+                          w_hh, nullptr, dx, partial, dw_smem, blocks, out, stream);
 }

@@ -27,17 +27,17 @@
 //
 // Design. The TPU kernel's sequential T grid axis becomes a loop inside the
 // block. One block owns kRowsPerBlock rows for all T steps: W_hh (as bf16
-// pairs along k), W_ih, both biases and the [rows, H] carry stay in shared
-// memory for the whole sequence, so device memory sees x once and the
+// pairs along k), W_ih (bf16), both biases and the [rows, H] carry stay in
+// shared memory for the whole sequence, so device memory sees x once and the
 // output once. Thread (j, g) owns hidden unit j for kRowsPerThread rows and
 // keeps their three gate sums in registers; every W_hh value it reads from
 // shared memory feeds kRowsPerThread rows, and the carry reads are
 // broadcasts (all lanes of a warp read the same row). Two barriers per step
 // separate reading the old carry from writing the new one. Rows past N are
 // computed on zeros and never stored (no padded copy of x). Shared memory
-// holds W_hh whole, which caps H at 183 for D=6 (227 KB a block); a wider H
-// is refused at launch. `wgmma` on the tensor cores and TMA loads are later
-// work.
+// holds W_hh and W_ih whole, which caps H (227 KB a block; the widths are
+// in PERF.md); a wider H is refused at launch. `wgmma` on the tensor cores
+// and TMA loads are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,7 +61,7 @@ size_t smem_bytes(int D, int H) {
   const size_t hh = (H + 1) / 2;
   return sizeof(float) * kRowsPerBlock * 2 * hh  // carry [rows, 2*hh] f32
          + sizeof(__nv_bfloat162) * hh * h3      // W_hh as k-pairs [hh, 3H]
-         + sizeof(float) * D * h3                // W_ih [D, 3H]
+         + sizeof(__nv_bfloat162) * ((D * h3 + 1) / 2)  // W_ih bf16 [D, 3H], even length
          + sizeof(float) * 2 * h3                // b_ih, b_hh
          + sizeof(float) * kRowsPerBlock * D;    // x tile of one step
 }
@@ -86,8 +86,9 @@ __global__ void gru_fwd_kernel(const float* __restrict__ x, int64_t sn, int64_t 
   const int Hp = 2 * Hh;
   float* hc = reinterpret_cast<float*>(smem);  // [rows, Hp], 16-byte aligned
   __nv_bfloat162* whh2 = reinterpret_cast<__nv_bfloat162*>(hc + kRowsPerBlock * Hp);
-  float* wih = reinterpret_cast<float*>(whh2 + static_cast<size_t>(Hh) * H3);
-  float* bih = wih + static_cast<size_t>(D) * H3;
+  __nv_bfloat16* wih = reinterpret_cast<__nv_bfloat16*>(whh2 + static_cast<size_t>(Hh) * H3);
+  float* bih = reinterpret_cast<float*>(whh2 + static_cast<size_t>(Hh) * H3 +
+                                        (static_cast<size_t>(D) * H3 + 1) / 2);
   float* bhh = bih + H3;
   float* xs = bhh + H3;  // [rows, D]
 
@@ -104,7 +105,7 @@ __global__ void gru_fwd_kernel(const float* __restrict__ x, int64_t sn, int64_t 
                                               : __float2bfloat16_rn(0.0f);
     whh2[e] = __halves2bfloat162(lo, hi);
   }
-  for (int e = tid; e < D * H3; e += nthr) wih[e] = __bfloat162float(w_ih[e]);
+  for (int e = tid; e < D * H3; e += nthr) wih[e] = w_ih[e];
   for (int e = tid; e < H3; e += nthr) {
     bih[e] = b_ih[e];
     bhh[e] = b_hh[e];
@@ -147,10 +148,10 @@ __global__ void gru_fwd_kernel(const float* __restrict__ x, int64_t sn, int64_t 
       float xr = 0.0f, xz = 0.0f, xn = 0.0f;
       for (int d = 0; d < D; ++d) {
         const float xv = xrow[d];
-        const float* w = wih + static_cast<size_t>(d) * H3;
-        xr = fmaf(xv, w[j], xr);
-        xz = fmaf(xv, w[H + j], xz);
-        xn = fmaf(xv, w[2 * H + j], xn);
+        const __nv_bfloat16* w = wih + static_cast<size_t>(d) * H3;
+        xr = fmaf(xv, __bfloat162float(w[j]), xr);
+        xz = fmaf(xv, __bfloat162float(w[H + j]), xz);
+        xn = fmaf(xv, __bfloat162float(w[2 * H + j]), xn);
       }
       xr += bih[j];
       xz += bih[H + j];

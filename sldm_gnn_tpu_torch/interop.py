@@ -9,6 +9,10 @@ stores it) becomes the port's ``state_dict`` and back:
   * GRU leaves (``gru.w_ih0 [D, 3H]`` ...) keep the JAX layout, which is
     the layout of the port's GRU ops.
 
+The same holds for ``BlockedSageClassifier``'s tree (``sage/conv{i}/lin_l``,
+``lin_r``, ``sage/norm{i}``, ``head``): its fused paths read the Linear
+and LayerNorm parameters directly, so one tree serves every mode.
+
 Leaves under ``map_encoder`` move too. A snapshot strips them unless
 asked to keep them (``train/snapshot.py``), and a model built for serving
 has no encoder: :func:`map_feat_dim` says which to build.

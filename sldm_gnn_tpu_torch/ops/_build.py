@@ -120,14 +120,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gru_fwd_sg_launch.restype = i
     pi = ctypes.POINTER(ctypes.c_int)
     for name in ("gru_bwd_grid", "gru_bwd_sg_grid"):
-        getattr(lib, name).argtypes = [i, i, i, pi]  # N, D, H, -> blocks
+        getattr(lib, name).argtypes = [i, i, i, pi, pi]  # N, D, H, <-> dw_smem, -> blocks
         getattr(lib, name).restype = i
     lib.gru_bwd_launch.argtypes = [
         p, i64, i64, p,           # x, stride_n, stride_t, hs
         p, i64, i64, i,           # g, stride_n, stride_t, seq_cot
         i, i, i, i,               # N, T, D, H
         p, p, p, p,               # w_ih, b_ih, w_hh, b_hh
-        p, p, i, p, p,            # dx or NULL, partial, blocks, out, stream
+        p, p, i, i, p, p,         # dx or NULL, partial, dw_smem, blocks, out, stream
     ]
     lib.gru_bwd_launch.restype = i
     lib.gru_bwd_sg_launch.argtypes = [
@@ -135,9 +135,35 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i64, i64, i,           # g, stride_n, stride_t, seq_cot
         i, i, i, i,               # N, T, D, H
         p, p,                     # w_ih, w_hh
-        p, p, i, p, p,            # dx or NULL, partial, blocks, out, stream
+        p, p, i, i, p, p,         # dx or NULL, partial, dw_smem, blocks, out, stream
     ]
     lib.gru_bwd_sg_launch.restype = i
+    f = ctypes.c_float
+    lib.spmm_banded_launch.argtypes = [
+        p, i, p, i, i, i,         # a, a_f32, bo, nb, s_span, tile
+        p, i, i, p, p, p, p,      # x, x_bf16, D, cs, rs, out, stream
+    ]
+    lib.sage_fwd_launch.argtypes = [
+        p, i, p, p, i, i, i, i,   # a, a_f32, bo, rs, nb, s_span, tile, k
+        p, i, i, i, p, p,         # x, x_bf16, D, H, wl, wr
+        p, p, p, f, i, f,         # bias, gamma, beta, eps, has_act, slope
+        p, i, p, p, p, p, p,      # r_c, r_bf16, rg, out, xhat, rstd, stream
+    ]
+    lib.sage_bwd_grid.argtypes = [i, i, i, i, pi]  # nb, D, H, with_dw, -> blocks
+    lib.sage_bwd_launch.argtypes = [
+        p, i, p, p, p, i, i, i, i,  # a, a_f32, bo, cs, rstd, nb, s_span, tile, k
+        p, i, p, i, i,              # R, r_bf16, O, o_bf16, H
+        p, p, i, p, i, p,           # wlt, wrt, D, t_c, tc_bf16, rg
+        p, i, p, i, p, i,           # x, x_bf16, dx, dx_bf16, t_out, t_bf16
+        p, i, p, p,                 # partial, blocks, dw, stream
+    ]
+    lib.ln_bwd_prologue_launch.argtypes = [
+        i, i, p, i, p, i, p, p, p, i,  # nb, tile, g, g_bf16, xhat, xh_bf16, rstd, gamma, beta, H
+        i, f, p, p, p, p, p,           # has_act, slope, dyu, dyo, stats, dstats, stream
+    ]
+    for name in ("spmm_banded_launch", "sage_fwd_launch", "sage_bwd_grid", "sage_bwd_launch",
+                 "ln_bwd_prologue_launch"):
+        getattr(lib, name).restype = i
     lib.knn_topk_launch.argtypes = [p, i, p, i, i, p, p, p]
     lib.knn_topk_launch.restype = i
     lib.sldm_error_string.argtypes = [i]

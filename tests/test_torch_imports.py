@@ -34,11 +34,17 @@ TRAINING_SLICE = ["sldm_gnn_tpu_torch/train/loop.py", "sldm_gnn_tpu_torch/train/
                   "sldm_gnn_tpu_torch/models/map_modules.py"]
 
 
+BANDED_SLICE = ["sldm_gnn_tpu_torch/graph/csr.py", "sldm_gnn_tpu_torch/ops/spmm_banded.py",
+                "sldm_gnn_tpu_torch/ops/sage_fused.py", "sldm_gnn_tpu_torch/ops/banded_residual.py",
+                "sldm_gnn_tpu_torch/models/blocked_sage.py", "sldm_gnn_tpu_torch/interop.py"]
+
+
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "sldm_gnn_tpu_torch/ops/gru_cuda.py" in names
     assert "chip_smoke.py" in names
     assert set(TRAINING_SLICE) <= names  # the scan covers the training slice
+    assert set(BANDED_SLICE) <= names  # and the banded GraphSAGE slice
 
 
 def test_port_modules_import_with_jax_unavailable():
