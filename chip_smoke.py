@@ -29,7 +29,18 @@ launch count set to 0 just before a path and read just after it:
     the plain versions, then 20 steps (p50 ms/step and edges/s);
   * ``BlockedSageClassifier((128, 128), num_classes=4)`` on the same graph,
     20 Adam steps with ``fused_ln`` on the banded-residual layout and 20
-    unfused on the pure banded layout; the loss must fall.
+    unfused on the pure banded layout; the loss must fall. The unfused
+    model's weights then run inference with ``int8_features=True`` (the
+    int8 banded kernel): bit-equal to its plain version, within 5e-2 of
+    max|logit| of the f32 path;
+  * the same graph as bench.py's one-hot (tile 512, 512-slot chunks, 2 a
+    step), dense (int8 counts, tile 128, 4-block padding), hybrid
+    (min_pair_edges 300) and gather (tile 128, K=12, R=24) layouts: the one-hot,
+    dense and gather kernels (and the int8 banded kernel) against their
+    plain versions and timed; bench.py's two-layer step on each layout (one
+    step's gradients against the plain versions, then 20 steps); and the
+    classifier, 20 Adam steps on the one-hot layout (``k_per_step=2``) and
+    20 on the hybrid.
 
 It prints its findings, a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -40,6 +51,7 @@ network.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -69,6 +81,7 @@ MAP_FEATS = 9
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_INT8_OP_S = 1979e12
 
 # tolerances, kernel vs its plain version on the same card:
 #  GRU: both sum exact bf16 products in f32, in different orders, and round
@@ -123,6 +136,31 @@ CLS_STEPS = 20
 #  at bf16): 2^-8 = 3.9e-3 relative of that value. max|err| / max|plain|
 #  within 1e-2, the CPU tests' bound against the Pallas interpret kernels.
 BANDED_REL = 1e-2
+# bench.py's other layouts of the same graph: one-hot (BENCH_SPMM=onehot:
+# BENCH_TILE 512, BENCH_EDGE_CHUNK 512, BENCH_K_PER_STEP 2), dense (int8
+# counts, tile 128, BENCH_DENSE_K 4), gather (tile 128, K 12) and hybrid.
+# At bench.py's BENCH_HYBRID_MIN of 64 every block pair of this graph is
+# dense (the smallest has 191 edges); 300 sends the outer pairs, about a
+# quarter of the edges, to the one-hot half.
+# The gather builder's own slot cap stops at 16 sources a row, which leaves
+# about a tenth of this graph's edges out (its in-degree is 16, its
+# out-degree varies about 16; 9.6 % at 20 000 nodes) and raises, in the JAX
+# package too; bench.py's BENCH_GATHER_R=24 leaves 0.3 % in the residual.
+GATHER_R = 24
+ONEHOT_TILE = 512
+ONEHOT_CHUNK = 512
+ONEHOT_K = 2
+DENSE_K = 4
+HYBRID_MIN = 300
+#  one-hot and dense kernels vs their plain versions with f32 output: the
+#  same products, f32 sums in another order; 1e-5 of max|out| (the CPU
+#  tests' bound against the Pallas interpret kernels). With bf16 output
+#  BANDED_REL. The gather and int8 kernels sum in the plain versions'
+#  order (or exactly): bit-equal.
+AGG_F32_REL = 1e-5
+#  int8-feature logits vs the f32 path: the per-tensor quantization error,
+#  5e-2 of max|logit| (tests/test_blocked_sage.py:145)
+INT8_REL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -729,7 +767,10 @@ COUNTED = {"gru_fwd": ("gru_cuda", "gru_fwd"), "gru_fwd_sg": ("gru_cuda", "gru_f
            "spmm_banded": ("spmm_banded", "spmm_banded"),
            "banded_sage_fwd": ("sage_fused", "banded_sage_fwd"),
            "banded_sage_bwd": ("sage_fused", "banded_sage_bwd"),
-           "banded_sage_ln_bwd": ("sage_fused", "banded_sage_ln_bwd")}
+           "banded_sage_ln_bwd": ("sage_fused", "banded_sage_ln_bwd"),
+           "spmm_onehot": ("spmm", "spmm_onehot"), "spmm_dense": ("spmm_dense", "spmm_dense"),
+           "spmm_gather": ("spmm_gather", "spmm_gather"),
+           "spmm_banded_int8": ("spmm_banded", "spmm_banded_int8")}
 
 
 def set_counts_to_zero(mods: dict) -> None:
@@ -865,6 +906,7 @@ def profile_steps(run_step, label: str, keys: tuple[str, ...], steps: int = 3) -
 GRU_KERNEL_KEYS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_bwd_reduce", "knn_topk_kernel")
 BANDED_KERNEL_KEYS = ("spmm_banded_kernel", "sage_fwd_kernel", "sage_bwd_kernel",
                       "ln_bwd_prologue_kernel", "reduce_partials_kernel")
+LAYOUT_KERNEL_KEYS = ("spmm_onehot_kernel", "spmm_dense_kernel", "spmm_gather_kernel")
 
 
 def check_train_to_serve(mods: dict, model, md, tmp: Path, dev) -> None:
@@ -953,14 +995,20 @@ def banded_cost(blocks, d: int, h: int, xbytes: int, kind: str, extra: float = 0
     return nbytes, flops
 
 
-def banded_plain_versions(mods: dict):
-    """The four banded kernel wrappers replaced by their plain versions,
-    wherever the port's modules call them."""
+def graph_plain_versions(mods: dict):
+    """The graph kernels' wrappers (banded, fused SAGE, one-hot, dense,
+    gather, int8 banded) replaced by their plain versions, wherever the
+    port's modules call them."""
     from contextlib import ExitStack
 
     stack = ExitStack()
     tsb, tsf, tbr = mods["spmm_banded"], mods["sage_fused"], mods["banded_residual"]
     stack.enter_context(mock.patch.object(tsb, "spmm_banded", tsb.spmm_banded_plain))
+    stack.enter_context(mock.patch.object(tsb, "spmm_banded_int8", tsb.spmm_banded_int8_plain))
+    for mod, name in (("spmm", "spmm_onehot"), ("spmm_dense", "spmm_dense"),
+                      ("spmm_gather", "spmm_gather")):
+        stack.enter_context(mock.patch.object(mods[mod], name,
+                                              getattr(mods[mod], f"{name}_plain")))
     for name in ("banded_sage_fwd", "banded_sage_bwd", "banded_sage_ln_bwd"):
         plain = getattr(tsf, f"{name}_plain")
         for mod in (tsf, tbr):
@@ -1138,16 +1186,17 @@ def step_grad_excess(label: str, names, got, want) -> float:
     return worst
 
 
-def check_bench_step(mods: dict, resid, n_edges: int, dev, smi: str) -> dict:
-    """bench.py's loss_pallas_fused step (bench.py:485-498, bench_step
-    :106-109): two banded_residual_sage_apply layers, bf16, ReLU, no bias,
-    loss sum(h.float()), gradients of the f32 params and the bf16 x, and the
-    p - 1e-9 g update. One step's gradients through the kernels against the
-    plain versions, then BENCH_STEPS timed steps."""
-    tbr = mods["banded_residual"]
+def check_bench_step(mods: dict, label: str, layer, n_pad: int, per_step: dict, keys_k: tuple,
+                     n_edges: int, dev, smi: str) -> dict:
+    """bench.py's step (bench_step :106-109): two layers `layer(h, wa, wb)`,
+    bf16, loss sum(h.float()), gradients of the f32 params and the bf16 x,
+    and the p - 1e-9 g update. One step's gradients through the kernels
+    against the plain versions, then BENCH_STEPS timed steps with the
+    launches `per_step` a step, and a profile of 3 (kernels named by
+    `keys_k`)."""
     bf16 = torch.bfloat16
     rng = np.random.default_rng(1)
-    n_pad, d = resid.n_pad, BENCH_DIM
+    d = BENCH_DIM
     x = torch.from_numpy(rng.standard_normal((n_pad, d)).astype(np.float32)).to(dev, bf16)
     keys = ("w0a", "w0b", "w1a", "w1b")
     params = {k: torch.from_numpy(rng.standard_normal((d, d)).astype(np.float32) * 0.05).to(dev)
@@ -1157,8 +1206,7 @@ def check_bench_step(mods: dict, resid, n_edges: int, dev, smi: str) -> dict:
         ps = [params[k].detach().requires_grad_() for k in keys]
         xg = x.detach().requires_grad_()
         p = [v.to(bf16) for v in ps]
-        h = tbr.banded_residual_sage_apply(xg, p[0], p[1], None, resid, True, 0.0)
-        h = tbr.banded_residual_sage_apply(h, p[2], p[3], None, resid, True, 0.0)
+        h = layer(layer(xg, p[0], p[1]), p[2], p[3])
         loss = h.float().sum()
         return loss, torch.autograd.grad(loss, [*ps, xg])
 
@@ -1168,13 +1216,14 @@ def check_bench_step(mods: dict, resid, n_edges: int, dev, smi: str) -> dict:
                 (x - 1e-9 * gs[-1]).to(bf16))
 
     loss_k, g_k = grads(params, x)
-    with banded_plain_versions(mods):
+    with graph_plain_versions(mods):
         loss_p, g_p = grads(params, x)
-    worst = step_grad_excess("bench step", (*keys, "x"), g_k, g_p)
-    log(f"bench step (banded_residual+fused, bf16): loss {loss_k.item():.6e} through the kernels "
-        f"vs {loss_p.item():.6e} through the plain versions; gradients of w0a..w1b and x within "
+    worst = step_grad_excess(f"bench step {label}", (*keys, "x"), g_k, g_p)
+    log(f"bench step ({label}, bf16): loss {loss_k.item():.6e} through the kernels vs "
+        f"{loss_p.item():.6e} through the plain versions; gradients of w0a..w1b and x within "
         f"rtol {STEP_GRAD_TOL} + {STEP_GRAD_TOL} * (max|g| + {STEP_GRAD_FLOOR}) (largest excess "
         f"{worst:.3e} of that scale)")
+    del g_k, g_p
 
     set_counts_to_zero(mods)
     times = []
@@ -1185,25 +1234,37 @@ def check_bench_step(mods: dict, resid, n_edges: int, dev, smi: str) -> dict:
         times.append((time.perf_counter() - t0) * 1e3)
     counts = read_counts(mods)
     p50 = float(np.median(times))
-    log(f"bench step: {BENCH_STEPS} steps, p50 {p50:.3f} ms/step, {n_edges / (p50 / 1e3):.4e} "
-        f"edges/s ({n_edges} edges; first step {times[0]:.3f} ms), launches {counts}, on {smi}")
-    want = {"banded_sage_fwd": 2 * BENCH_STEPS, "banded_sage_bwd": 2 * BENCH_STEPS}
+    log(f"bench step {label}: {BENCH_STEPS} steps, p50 {p50:.3f} ms/step, "
+        f"{n_edges / (p50 / 1e3):.4e} edges/s ({n_edges} edges; first step {times[0]:.3f} ms), "
+        f"launches {counts} ({per_step} a step), on {smi}")
+    want = {k: v * BENCH_STEPS for k, v in per_step.items()}
     if any(counts[k] != v for k, v in want.items()) or \
             sum(counts.values()) != sum(want.values()):
-        raise AssertionError(f"bench step: launches {counts}, want {want}")
+        raise AssertionError(f"bench step {label}: launches {counts}, want {want}")
     if not all(torch.isfinite(v).all() for v in params.values()):
-        raise AssertionError("bench step: a parameter is not finite")
+        raise AssertionError(f"bench step {label}: a parameter is not finite")
     state = [params, x]
 
     def run_step():
         state[0], state[1] = step(*state)
 
-    profile_steps(run_step, "bench step", BANDED_KERNEL_KEYS)
+    profile_steps(run_step, f"bench step {label}", keys_k)
     return counts
 
 
+def classifier_data(n_pad: int, dev):
+    """Features [n_pad, D] and labels of the classifier runs, from numpy
+    with SEED: the label adds 1 to its feature."""
+    rng = np.random.default_rng(SEED)
+    y = rng.integers(0, CLS_CLASSES, BENCH_NODES)
+    x = np.zeros((n_pad, BENCH_DIM), np.float32)
+    x[:BENCH_NODES] = rng.standard_normal((BENCH_NODES, BENCH_DIM)) * 0.5
+    x[np.arange(BENCH_NODES), y] += 1.0
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
 def check_classifier(mods: dict, layout, n_pad: int, mode: dict, label: str, want: dict,
-                     dev) -> dict:
+                     dev):
     """BlockedSageClassifier((128, 128), num_classes=4, negative_slope=0.1)
     over `layout` (forward, reverse): features and labels from numpy with
     SEED (the label adds 1 to its feature), random weights from SEED, Adam
@@ -1212,15 +1273,10 @@ def check_classifier(mods: dict, layout, n_pad: int, mode: dict, label: str, wan
     last is below the first, and the launches are `want` per step. Before
     training, the first step's logits through the kernels are held against
     the plain versions' (max|err| / max|logit| within BANDED_REL) and its
-    parameter gradients at STEP_GRAD_TOL."""
+    parameter gradients at STEP_GRAD_TOL. Returns (counts, trained model)."""
     from sldm_gnn_tpu_torch.models.blocked_sage import BlockedSageClassifier
 
-    rng = np.random.default_rng(SEED)
-    y = rng.integers(0, CLS_CLASSES, BENCH_NODES)
-    x = np.zeros((n_pad, BENCH_DIM), np.float32)
-    x[:BENCH_NODES] = rng.standard_normal((BENCH_NODES, BENCH_DIM)) * 0.5
-    x[np.arange(BENCH_NODES), y] += 1.0
-    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    x, y = classifier_data(n_pad, dev)
     torch.manual_seed(SEED)
     model = BlockedSageClassifier((BENCH_DIM, BENCH_DIM), num_classes=CLS_CLASSES,
                                   in_features=BENCH_DIM, negative_slope=0.1, **mode).to(dev)
@@ -1234,7 +1290,7 @@ def check_classifier(mods: dict, layout, n_pad: int, mode: dict, label: str, wan
         return logits.detach(), loss.item(), torch.autograd.grad(loss, list(model.parameters()))
 
     logits_k, first_k, g_k = first_step()
-    with banded_plain_versions(mods):
+    with graph_plain_versions(mods):
         logits_p, first_p, g_p = first_step()
     rel = ((logits_k - logits_p).abs().max() / logits_p.abs().max()).item()
     if not torch.isfinite(logits_k).all() or rel > BANDED_REL:
@@ -1267,6 +1323,229 @@ def check_classifier(mods: dict, layout, n_pad: int, mode: dict, label: str, wan
     if any(counts[k] != v for k, v in want.items()) or \
             sum(counts.values()) != sum(want.values()):
         raise AssertionError(f"classifier {label}: launches {counts}, want {want}")
+    return counts, model
+
+
+def layout_set(mods: dict, graph, dev) -> dict:
+    """bench.py's graph as its one-hot (BENCH_SPMM=onehot: tile 512, 512-slot
+    chunks, 2 chunks a step), dense (int8 counts, tile 128, padded to 4
+    blocks), gather (tile 128, K=12, R=24) and hybrid (dense int8 tiles for the
+    pairs of at least HYBRID_MIN edges, one-hot chunks for the rest) layouts,
+    built on the host and moved to the card: {name: ((fwd, rev), n_pad)}."""
+    src, dst = graph
+    n = BENCH_NODES
+    t = [time.perf_counter()]
+    of, orv, n1 = mods["spmm"].prepare_mean_aggregate(
+        src, dst, n, step_chunks=ONEHOT_K, tile=ONEHOT_TILE, edge_chunk=ONEHOT_CHUNK)
+    t.append(time.perf_counter())
+    df, dr, n2 = mods["spmm_dense"].prepare_dense_mean_aggregate(
+        src, dst, n, tile=BANDED_TILE, pad_blocks_to=DENSE_K, dtype=np.int8)
+    t.append(time.perf_counter())
+    gl, n3 = mods["spmm_gather"].prepare_gather_residual_mean_aggregate(
+        src, dst, n, tile=BANDED_TILE, k=BANDED_K, r=GATHER_R)
+    t.append(time.perf_counter())
+    hl, n4 = mods["spmm_hybrid"].prepare_hybrid_mean_aggregate(
+        src, dst, n, tile=BANDED_TILE, dense_k=DENSE_K, k_per_step=ONEHOT_K,
+        min_pair_edges=HYBRID_MIN, a_budget_bytes=8e9, dense_dtype=np.int8)
+    t.append(time.perf_counter())
+    dt = np.diff(t)
+    log(f"one-hot layout in {dt[0]:.3f} s on the host: n_pad {n1}, {of.num_chunks}/"
+        f"{orv.num_chunks} chunks of {of.edge_chunk} slots (fwd/rev), "
+        f"{int((of.weight != 0).sum())} live slots")
+    log(f"dense layout in {dt[1]:.3f} s: n_pad {n2}, {df.num_dst_blocks} blocks, s_max "
+        f"{df.s_max}/{dr.s_max}, A {df.a.numel() / 1e6:.1f} MB a direction, max count "
+        f"{int(df.a.max())}")
+    gf, gr = gl.gather_fwd, gl.gather_rev
+    log(f"gather layout in {dt[2]:.3f} s: n_pad {n3}, R {gf.r}/{gr.r}, wsz {gf.wsz}/{gr.wsz}, "
+        f"codes {gf.codes.numel() * 4 / 1e6:.1f} MB a direction, residual "
+        f"{gl.resid_frac:.5f} ({len(gl.r_src)} edges, slots {gl.m_fwd}/{gl.m_rev} of "
+        f"{gl.steps} groups)")
+    nb = n4 // BANDED_TILE
+    _, pair_edges = np.unique(dst // BANDED_TILE * nb + src // BANDED_TILE, return_counts=True)
+    log(f"block pairs of tile {BANDED_TILE}: {len(pair_edges)}, the smallest with "
+        f"{pair_edges.min()} edges")
+    log(f"hybrid layout in {dt[3]:.3f} s: n_pad {n4}, min_pair_edges {HYBRID_MIN}, dense_frac "
+        f"{hl.dense_frac:.4f}, dense s_max {hl.dense_fwd.s_max}/{hl.dense_rev.s_max}, one-hot "
+        f"{hl.onehot_fwd.num_chunks}/{hl.onehot_rev.num_chunks} chunks of "
+        f"{hl.onehot_fwd.edge_chunk}")
+    return {"onehot": ((of.to(dev), orv.to(dev)), n1), "dense": ((df.to(dev), dr.to(dev)), n2),
+            "gather": ((gl.to(dev), None), n3), "hybrid": ((hl.to(dev), None), n4)}
+
+
+def check_layout_kernels(mods: dict, lays: dict, pure, graph, gen, dev) -> list[dict]:
+    """The one-hot, dense, gather and int8 banded kernels against their plain
+    versions at bench.py's shapes (f32 and bf16 x; HIGHEST for the one-hot;
+    both directions), two launches bit-equal; then times of kernel, plain
+    version and the cuSPARSE CSR yardstick (bf16 x, int8 for the int8
+    kernel)."""
+    tsp, tsd, tsg, tsb = mods["spmm"], mods["spmm_dense"], mods["spmm_gather"], mods["spmm_banded"]
+    quantize = mods["quant"].quantize_tensor_xla
+    d = BENCH_DIM
+    errs = dict.fromkeys(("spmm_onehot", "spmm_dense", "spmm_gather", "spmm_banded_int8"), 0.0)
+
+    def compare(name, what, kernel, plain, tol):
+        """`tol` None: kernel and plain must be bit-equal."""
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        stable, equal = torch.equal(got, again), torch.equal(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / max(want.float().abs().max().item(), 1e-30)
+        log(f"{name} {what}: max|err| {err:.3e}, {rel:.2e} of max|plain| (tol "
+            f"{'bit-equal' if tol is None else tol}; bit-equal {equal}); two launches "
+            f"bit-equal {stable}")
+        if not stable or not torch.isfinite(got).all() or \
+                (not equal if tol is None else rel > tol):
+            raise AssertionError(f"{name} kernel disagrees with its plain version ({what})")
+        errs[name] = max(errs[name], err)
+
+    (of, orv), n1 = lays["onehot"]
+    (df, dr), n2 = lays["dense"]
+    (gl, _), n3 = lays["gather"]
+    pf, n_int8 = pure[0], pure[0].num_dst_blocks * pure[0].tile
+    xs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        tol = BANDED_REL if dt == torch.bfloat16 else AGG_F32_REL
+        x1, x2, x3 = (torch.randn((n, d), generator=gen).to(dev, dt) for n in (n1, n2, n3))
+        xs[name] = (x1, x2, x3)
+        for lay, what in ((of, "forward"), (orv, "reverse")):
+            compare("spmm_onehot", f"{name} {what}",
+                    lambda: tsp.spmm_onehot(x1, lay, k_per_step=ONEHOT_K),
+                    lambda: tsp.spmm_onehot_plain(x1, lay, k_per_step=ONEHOT_K), tol)
+            if dt == torch.float32:
+                compare("spmm_onehot", f"f32 HIGHEST {what}",
+                        lambda: tsp.spmm_onehot(x1, lay, precision="highest"),
+                        lambda: tsp.spmm_onehot_plain(x1, lay, precision="highest"), tol)
+        for lay, what in ((df, "forward (row scale)"), (dr, "reverse (column scale)")):
+            compare("spmm_dense", f"{name} int8 tiles {what}",
+                    lambda: tsd.spmm_dense(x2, lay, step_blocks=DENSE_K),
+                    lambda: tsd.spmm_dense_plain(x2, lay, step_blocks=DENSE_K), tol)
+        g_rev = dataclasses.replace(gl.gather_rev, col_scale=None)
+        x3r = (x3.float() * gl.gather_rev.col_scale).to(dt)
+        for lay, xv, what in ((gl.gather_fwd, x3, "forward"),
+                              (g_rev, x3r, "reverse (column scale folded into x)")):
+            compare("spmm_gather", f"{name} {what}", lambda: tsg.spmm_gather(xv, lay),
+                    lambda: tsg.spmm_gather_plain(xv, lay), None)
+    x_int8 = torch.randn((n_int8, d), generator=gen).to(dev)
+    xq, x_scale = quantize(x_int8)
+    compare("spmm_banded_int8", "pure banded forward layout",
+            lambda: tsb.spmm_banded_int8(xq, x_scale, pf),
+            lambda: tsb.spmm_banded_int8_plain(xq, x_scale, pf), None)
+    del xs["f32"]
+    torch.cuda.empty_cache()
+
+    # times at bench.py's dtype (bf16; int8 for the int8 kernel), with the
+    # library yardstick: cuSPARSE's CSR product by the mean-aggregation
+    # matrix, f32, on an f32 copy of the inputs
+    x1, x2, x3 = xs["bf16"]
+    csr = {n: mean_csr(*graph, n, dev) for n in {n1, n2, n3, n_int8}}
+    live = int((of.weight != 0).sum())
+    gf = gl.gather_fwd
+    runs = [
+        ("spmm_onehot", "sldm_gnn_tpu_torch/csrc/spmm_onehot.cu", "sldm_gnn_tpu/ops/spmm.py:202",
+         f"N={n1} D={d} one-hot forward layout, tile {ONEHOT_TILE}, {of.num_chunks} chunks "
+         f"of {of.edge_chunk}, bf16",
+         lambda: tsp.spmm_onehot(x1, of, k_per_step=ONEHOT_K),
+         lambda: tsp.spmm_onehot_plain(x1, of, k_per_step=ONEHOT_K), x1,
+         (of.num_chunks * 8 + of.src_local.numel() * 12 + 2 * n1 * d * 2, 2.0 * live * d),
+         PEAK_BF16_FLOP_S),
+        ("spmm_dense", "sldm_gnn_tpu_torch/csrc/spmm_dense.cu",
+         "sldm_gnn_tpu/ops/spmm_dense.py:241",
+         f"N={n2} D={d} dense forward layout, int8 tiles, s_max {df.s_max}, bf16",
+         lambda: tsd.spmm_dense(x2, df, step_blocks=DENSE_K),
+         lambda: tsd.spmm_dense_plain(x2, df, step_blocks=DENSE_K), x2,
+         (df.a.numel() + df.src_blk.numel() * 4 + n2 * 4 + 2 * n2 * d * 2,
+          2.0 * df.num_dst_blocks * df.s_max * df.tile ** 2 * d), PEAK_BF16_FLOP_S),
+        ("spmm_gather", "sldm_gnn_tpu_torch/csrc/spmm_gather.cu",
+         "sldm_gnn_tpu/ops/spmm_gather.py:483",
+         f"N={n3} D={d} gather forward layout, R {gf.r}, bf16",
+         lambda: tsg.spmm_gather(x3, gf), lambda: tsg.spmm_gather_plain(x3, gf), x3,
+         (n3 * gf.r * 8 + gf.woff.numel() * 4 + n3 * 4 + 2 * n3 * d * 2, 2.0 * n3 * gf.r * d),
+         PEAK_F32_FLOP_S),
+        ("spmm_banded_int8", "sldm_gnn_tpu_torch/csrc/spmm_banded_int8.cu",
+         "sldm_gnn_tpu/ops/spmm_banded.py:564",
+         f"N={n_int8} D={d} pure banded forward layout, s_span {pf.s_span}, int8 x, f32 out",
+         lambda: tsb.spmm_banded_int8(xq, x_scale, pf),
+         lambda: tsb.spmm_banded_int8_plain(xq, x_scale, pf), x_int8,
+         (pf.a.numel() + pf.bo.numel() * 4 + n_int8 * d + 4 + n_int8 * 4 + n_int8 * d * 4,
+          2.0 * pf.num_dst_blocks * pf.s_span * pf.tile ** 2 * d), PEAK_INT8_OP_S),
+    ]
+    entries = []
+    for name, source, replaces, shape, kernel, plain, xin, cost, peak in runs:
+        ms, host = timed(kernel, iters=10)
+        plain_ms, _ = timed(plain, iters=3, warmup=1)
+        x32, m = xin.float(), csr[xin.shape[0]]
+        library_ms, _ = timed(lambda: torch.sparse.mm(m, x32), iters=10)
+        bound_ms, bound_by = bound(*cost, peak)
+        log(f"{name} timing ({shape}): kernel {ms:.4f} ms (host issue {host:.4f}), plain "
+            f"{plain_ms:.4f} ms, cuSPARSE CSR f32 {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.2f} G operations)")
+        entries.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                            shape=shape, max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+    return entries
+
+
+def layout_step(mods: dict, name: str, layout):
+    """bench.py's unfused layer on the layout `name` (two_layer_sage :70-90
+    with loss_pallas's aggregation :501-513: relu(agg(h) @ wa + h @ wb)),
+    the layout's n_pad, and the kernel launches of one two-layer step: 2
+    forward and 2 reverse aggregations (each half's for the hybrid)."""
+    (fwd, rev), n_pad = layout
+    if name == "onehot":
+        agg = lambda h: mods["spmm"].spmm_apply(h, fwd, rev, n_pad, True, ONEHOT_K)
+        per_step = {"spmm_onehot": 4}
+    elif name == "dense":
+        agg = lambda h: mods["spmm_dense"].spmm_dense_apply(h, fwd, rev, True, DENSE_K)
+        per_step = {"spmm_dense": 4}
+    elif name == "gather":
+        agg = lambda h: mods["spmm_gather"].spmm_gather_residual_apply(h, fwd, True)
+        per_step = {"spmm_gather": 4}
+    else:
+        agg = lambda h: mods["spmm_hybrid"].spmm_hybrid_apply(h, fwd, True)
+        per_step = {"spmm_dense": 4, "spmm_onehot": 4}
+    return (lambda h, wa, wb: torch.relu(agg(h) @ wa + h @ wb)), n_pad, per_step
+
+
+def check_int8_inference(mods: dict, model, pure, n_pad: int, dev) -> dict:
+    """BlockedSageClassifier with int8_features=True, the weights of `model`
+    (the unfused classifier trained on the pure banded layout): its logits
+    through the int8 kernel equal those through its plain version bit for
+    bit, and lie within INT8_REL of max|logit| of the f32 path (the same
+    weights with use_pallas=False). Returns the launch counts of one
+    inference."""
+    from sldm_gnn_tpu_torch.models.blocked_sage import BlockedSageClassifier
+
+    x, _ = classifier_data(n_pad, dev)
+    kw = dict(in_features=BENCH_DIM, negative_slope=0.1)
+    m8 = BlockedSageClassifier((BENCH_DIM, BENCH_DIM), CLS_CLASSES, int8_features=True, **kw)
+    m32 = BlockedSageClassifier((BENCH_DIM, BENCH_DIM), CLS_CLASSES, use_pallas=False, **kw)
+    for m in (m8, m32):
+        m.load_state_dict(model.state_dict())
+        m.to(dev).eval()
+    with torch.no_grad():
+        set_counts_to_zero(mods)
+        got = m8(x, *pure, n_pad)
+        torch.cuda.synchronize()
+        counts = read_counts(mods)
+        with graph_plain_versions(mods):
+            plain = m8(x, *pure, n_pad)
+        f32 = m32(x, *pure, n_pad)
+        ms, _ = timed(lambda: m8(x, *pure, n_pad), iters=10)
+        ms32, _ = timed(lambda: m32(x, *pure, n_pad), iters=10)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, plain)
+    rel = ((got - f32).abs().max() / f32.abs().max()).item()
+    log(f"int8 inference (pure banded, the unfused classifier's weights): logits through the "
+        f"kernel bit-equal to the plain version's {equal}; max|err| vs the f32 path {rel:.3e} "
+        f"of max|logit| (tol {INT8_REL}); {ms:.3f} ms per inference (f32 twin {ms32:.3f} ms); "
+        f"launches {counts}")
+    if not equal or not torch.isfinite(got).all() or rel > INT8_REL:
+        raise AssertionError("int8 inference disagrees")
+    want = {"spmm_banded_int8": 2}
+    if any(counts[k] != v for k, v in want.items()) or \
+            sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"int8 inference: launches {counts}, want {want}")
     return counts
 
 
@@ -1275,8 +1554,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
               file=sys.stderr)
         return 2
-    from sldm_gnn_tpu_torch.ops import _build, banded_residual, gru_cuda, sage_fused, spmm_banded
+    from sldm_gnn_tpu_torch.ops import _build, banded_residual, gru_cuda, quant, sage_fused, spmm
     from sldm_gnn_tpu_torch.ops import knn as knn_ops
+    from sldm_gnn_tpu_torch.ops import spmm_banded, spmm_dense, spmm_gather, spmm_hybrid
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1303,7 +1583,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mods = {"gru_cuda": gru_cuda, "knn_ops": knn_ops, "spmm_banded": spmm_banded,
-            "sage_fused": sage_fused, "banded_residual": banded_residual}
+            "sage_fused": sage_fused, "banded_residual": banded_residual, "spmm": spmm,
+            "spmm_dense": spmm_dense, "spmm_gather": spmm_gather, "spmm_hybrid": spmm_hybrid,
+            "quant": quant}
     with tempfile.TemporaryDirectory() as tmp:
         launches = check_serving(gru_cuda, knn_ops, Path(tmp), dev)
         for e in entries:
@@ -1323,14 +1605,20 @@ def main() -> int:
     resid, pure, n_pad, graph = banded_layouts(mods, dev)
     banded_entries = check_banded_kernels(mods, resid, pure, graph, gen, dev)
     torch.cuda.empty_cache()
-    counts_bench = check_bench_step(mods, resid, len(graph[0]), dev, smi)
-    counts_ln = check_classifier(mods, (resid, None), n_pad, dict(fused=True, fused_ln=True),
-                                 "fused_ln, banded-residual",
-                                 {"banded_sage_fwd": 2, "banded_sage_ln_bwd": 2}, dev)
+    counts_bench = check_bench_step(
+        mods, "banded_residual+fused",
+        lambda h, wa, wb: banded_residual.banded_residual_sage_apply(h, wa, wb, None, resid,
+                                                                     True, 0.0),
+        n_pad, {"banded_sage_fwd": 2, "banded_sage_bwd": 2}, BANDED_KERNEL_KEYS,
+        len(graph[0]), dev, smi)
+    counts_ln, _ = check_classifier(mods, (resid, None), n_pad, dict(fused=True, fused_ln=True),
+                                    "fused_ln, banded-residual",
+                                    {"banded_sage_fwd": 2, "banded_sage_ln_bwd": 2}, dev)
     # the first layer's input needs no gradient, so its aggregation runs no
     # backward: two forward and one reverse launch a step
-    counts_unfused = check_classifier(mods, pure, n_pad, {}, "unfused, pure banded",
-                                      {"spmm_banded": 3}, dev)
+    counts_unfused, model_unfused = check_classifier(mods, pure, n_pad, {},
+                                                     "unfused, pure banded",
+                                                     {"spmm_banded": 3}, dev)
     launch_of = {"spmm_banded": ("classifier unfused", counts_unfused),
                  "banded_sage_fwd": ("bench step", counts_bench),
                  "banded_sage_bwd": ("bench step", counts_bench),
@@ -1339,6 +1627,28 @@ def main() -> int:
         e["path"], counts = launch_of[e["name"]]
         e["launches"] = counts[e["name"]]
     entries += banded_entries
+    counts_int8 = check_int8_inference(mods, model_unfused, pure, n_pad, dev)
+    del model_unfused
+    torch.cuda.empty_cache()
+
+    lays = layout_set(mods, graph, dev)
+    layout_entries = check_layout_kernels(mods, lays, pure, graph, gen, dev)
+    del resid
+    torch.cuda.empty_cache()
+    step_counts = {name: check_bench_step(mods, name, *layout_step(mods, name, lays[name]),
+                                          LAYOUT_KERNEL_KEYS, len(graph[0]), dev, smi)
+                   for name in ("onehot", "dense", "hybrid", "gather")}
+    for name, mode, want in (("onehot", dict(k_per_step=ONEHOT_K), {"spmm_onehot": 3}),
+                             ("hybrid", {}, {"spmm_dense": 3, "spmm_onehot": 3})):
+        check_classifier(mods, *lays[name], mode, f"unfused, {name}", want, dev)
+    launch_of = {"spmm_onehot": ("bench step onehot", step_counts["onehot"]),
+                 "spmm_dense": ("bench step dense", step_counts["dense"]),
+                 "spmm_gather": ("bench step gather", step_counts["gather"]),
+                 "spmm_banded_int8": ("int8 inference", counts_int8)}
+    for e in layout_entries:
+        e["path"], counts = launch_of[e["name"]]
+        e["launches"] = counts[e["name"]]
+    entries += layout_entries
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

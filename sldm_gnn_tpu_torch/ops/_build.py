@@ -161,8 +161,25 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, i, p, i, p, i, p, p, p, i,  # nb, tile, g, g_bf16, xhat, xh_bf16, rstd, gamma, beta, H
         i, f, p, p, p, p, p,           # has_act, slope, dyu, dyo, stats, dstats, stream
     ]
+    lib.spmm_onehot_launch.argtypes = [
+        p, p, p, p, p, i, i, i,   # row_ptr, perm, block_meta, src_local, weight, ec, tile, rows
+        p, i, i, i, p, p,         # x, x_bf16, D, round, out, stream
+    ]
+    lib.spmm_dense_launch.argtypes = [
+        p, i, p, i, i, i,         # a, a_kind, src_blk, nb, s_max, tile
+        p, i, i, p, p, p,         # x, x_bf16, D, rs, out, stream
+    ]
+    lib.spmm_gather_launch.argtypes = [
+        p, i, p, p, i, i, i, i,   # codes, code_rows, mult, woff, nb, tile, k, R
+        p, i, i, p, p, p,         # x, x_bf16, D, rs, out, stream
+    ]
+    lib.spmm_banded_int8_launch.argtypes = [
+        p, p, i, i, i,            # a, bo, nb, s_span, tile
+        p, i, p, p, p, p,         # xq, D, x_scale, rs, out, stream
+    ]
     for name in ("spmm_banded_launch", "sage_fwd_launch", "sage_bwd_grid", "sage_bwd_launch",
-                 "ln_bwd_prologue_launch"):
+                 "ln_bwd_prologue_launch", "spmm_onehot_launch", "spmm_dense_launch",
+                 "spmm_gather_launch", "spmm_banded_int8_launch"):
         getattr(lib, name).restype = i
     lib.knn_topk_launch.argtypes = [p, i, p, i, i, p, p, p]
     lib.knn_topk_launch.restype = i

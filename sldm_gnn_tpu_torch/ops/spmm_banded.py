@@ -12,6 +12,9 @@ The TPU kernel streams one x window per group of ``k`` blocks (``woff``,
 ``off``, ``wsz``); the layouts keep those arrays so that they stay equal
 to the JAX builders', and the CUDA kernel reads ``bo`` alone.
 
+The int8 inference kernel (``csrc/spmm_banded_int8.cu``) aggregates
+per-tensor int8 features over the int8 count tiles exactly in integers.
+
 Left out (each raises ``NotImplementedError``): the int4 view
 (``counts_to_int4``), ``widen_banded`` (``wide``), ``cmap`` slots,
 ``chunk_blocks`` and the native OpenMP count fill; the builders take the
@@ -336,6 +339,86 @@ def spmm_banded(x: torch.Tensor, blocks: BandedBlocks) -> torch.Tensor:
 
 
 spmm_banded.launches = 0
+
+
+# ------------------------------------------------------------ int8 inference
+
+
+def _check_int8(xq: torch.Tensor, x_scale: torch.Tensor, blocks: BandedBlocks) -> None:
+    """The JAX kernel's asserts, as ValueErrors."""
+    nb, tile = blocks.num_dst_blocks, blocks.tile
+    if xq.dtype != torch.int8:
+        raise ValueError(f"int8 banded kernel: features must be int8, got {xq.dtype}")
+    if blocks.wide:
+        raise ValueError("int8 banded kernel uses the per-slot layout (not wide)")
+    if blocks.cmap is not None:
+        raise ValueError("int8 banded kernel: contiguous band only (no cmap)")
+    if blocks.a.dtype != torch.int8:
+        raise ValueError("int8 banded kernel needs int8 count tiles")
+    if blocks.row_scale is None:
+        raise ValueError("int8 banded kernel needs the factored-mean row scale")
+    if x_scale.shape != (1,) or x_scale.dtype != torch.float32:
+        raise ValueError(f"x_scale must be float32 of shape (1,), got {x_scale.dtype} "
+                         f"{tuple(x_scale.shape)}")
+    if xq.dim() != 2 or xq.shape[0] != nb * tile:
+        raise ValueError(f"xq rows {tuple(xq.shape)} must be num_dst_blocks * tile = {nb * tile}")
+
+
+def spmm_banded_int8_plain(xq: torch.Tensor, x_scale: torch.Tensor,
+                           blocks: BandedBlocks) -> torch.Tensor:
+    """Plain PyTorch version of ``csrc/spmm_banded_int8.cu``: the integer
+    sums (exact in f64), converted to f32, times ``x_scale``, times the row
+    scale; f32 out."""
+    _check_int8(xq, x_scale, blocks)
+    acc = slot_aggregate(blocks.a.double(), xq.double(), blocks)
+    return (acc.float() * x_scale) * blocks.row_scale
+
+
+def spmm_banded_int8(xq: torch.Tensor, x_scale: torch.Tensor,
+                     blocks: BandedBlocks) -> torch.Tensor:
+    """:func:`spmm_banded_int8_plain`'s function: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. ``xq [n_pad, D]`` int8 with
+    one per-tensor scale ``x_scale [1]`` f32; ``blocks`` the int8
+    count-tile layout with its row scale."""
+    if xq.device.type == "cpu":
+        return spmm_banded_int8_plain(xq, x_scale, blocks)
+    _check_int8(xq, x_scale, blocks)
+    nb, tile = blocks.num_dst_blocks, blocks.tile
+    n, d = xq.shape
+    if xq.device.type != "cuda":
+        raise ValueError(f"spmm_banded_int8 runs on CUDA or CPU tensors, got {xq.device}")
+    if blocks.a.device != xq.device or x_scale.device != xq.device:
+        raise ValueError(f"spmm_banded_int8: the layout and x_scale must be on {xq.device}")
+    if tile % 32 or not 32 <= tile <= 128 or d > 128:
+        raise ValueError(f"spmm_banded_int8: tile {tile} (32..128 by 32) and D {d} (<= 128)")
+    xq = xq.contiguous()
+    a = blocks.a.contiguous()
+    out = torch.empty((n, d), dtype=torch.float32, device=xq.device)
+    from . import _build
+
+    lib = _build.load()
+    with torch.cuda.device(xq.device):
+        code = lib.spmm_banded_int8_launch(
+            a.data_ptr(), blocks.bo.to(torch.int32).contiguous().data_ptr(), nb, blocks.s_span,
+            tile, xq.data_ptr(), d, x_scale.contiguous().data_ptr(),
+            scale_ptr(blocks.row_scale, n, xq.device), out.data_ptr(),
+            torch.cuda.current_stream(xq.device).cuda_stream)
+    _build.check(lib, code, f"spmm_banded_int8 kernel (nb={nb}, tile={tile}, D={d})")
+    spmm_banded_int8.launches += 1
+    return out
+
+
+spmm_banded_int8.launches = 0
+
+
+def spmm_banded_infer_int8(x: torch.Tensor, blocks: BandedBlocks) -> torch.Tensor:
+    """Quantize x per tensor (:func:`..ops.quant.quantize_tensor_xla`), then
+    aggregate through :func:`spmm_banded_int8`. Inference only: no
+    gradient flows through the quantized features."""
+    from .quant import quantize_tensor_xla
+
+    xq, scale = quantize_tensor_xla(x)
+    return spmm_banded_int8(xq, scale, blocks)
 
 
 # ------------------------------------------------------------ autograd

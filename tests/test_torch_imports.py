@@ -39,12 +39,18 @@ BANDED_SLICE = ["sldm_gnn_tpu_torch/graph/csr.py", "sldm_gnn_tpu_torch/ops/spmm_
                 "sldm_gnn_tpu_torch/models/blocked_sage.py", "sldm_gnn_tpu_torch/interop.py"]
 
 
+LAYOUT_SLICE = ["sldm_gnn_tpu_torch/ops/spmm.py", "sldm_gnn_tpu_torch/ops/spmm_dense.py",
+                "sldm_gnn_tpu_torch/ops/spmm_hybrid.py", "sldm_gnn_tpu_torch/ops/spmm_gather.py",
+                "sldm_gnn_tpu_torch/ops/quant.py"]
+
+
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "sldm_gnn_tpu_torch/ops/gru_cuda.py" in names
     assert "chip_smoke.py" in names
     assert set(TRAINING_SLICE) <= names  # the scan covers the training slice
     assert set(BANDED_SLICE) <= names  # and the banded GraphSAGE slice
+    assert set(LAYOUT_SLICE) <= names  # and the one-hot, dense, hybrid and gather layouts
 
 
 def test_port_modules_import_with_jax_unavailable():
