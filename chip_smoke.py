@@ -40,7 +40,15 @@ launch count set to 0 just before a path and read just after it:
     plain versions and timed; bench.py's two-layer step on each layout (one
     step's gradients against the plain versions, then 20 steps); and the
     classifier, 20 Adam steps on the one-hot layout (``k_per_step=2``) and
-    20 on the hybrid.
+    20 on the hybrid;
+  * int8 aggregation and SDDMM on the same graph: ``x [200192, 128]``
+    quantized per row (``quantize_rows``, round to nearest and stochastic)
+    and per tensor, ``spmm_int8`` and ``spmm_int8_pt`` over the one-hot
+    layout (2 chunks a step), and ``sddmm_apply`` forward and backward over
+    ``prepare_sddmm``'s layouts (the backward through the one-hot kernel):
+    each new kernel against its plain version, two launches bit-equal, the
+    outputs against the f32 references, timed against a library call; and
+    the RCM reorder of the graph shuffled as ``BENCH_SHUFFLE=1`` does.
 
 It prints its findings, a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -161,6 +169,22 @@ AGG_F32_REL = 1e-5
 #  int8-feature logits vs the f32 path: the per-tensor quantization error,
 #  5e-2 of max|logit| (tests/test_blocked_sage.py:145)
 INT8_REL = 5e-2
+# the int8 and SDDMM phase: the one-hot layout above for the int8
+# aggregations (bench.py's BENCH_SPMM=onehot), prepare_sddmm's layouts
+# (tile 128, auto_edge_chunk's 256-slot chunks) of the same graph for the
+# SDDMM; the stochastic quantizer at seed 0, and the reorder of the graph
+# shuffled by bench.py's BENCH_SHUFFLE permutation (default_rng(2)).
+#  quantizer kernel vs its plain version: the same IEEE divisions and hash
+#  bits, bit-equal. int8 aggregations: the same products summed in another
+#  order (index_add_ on the card), AGG_F32_REL of max|out|; against the f32
+#  aggregation of the unquantized x, the JAX tests' 5e-2 of max|out|
+#  (tests/test_spmm.py:316). SDDMM: the same products in the same order,
+#  SDDMM_REL of max|score| (in fact bit-equal); its gradients, which run the
+#  one-hot kernel at DEFAULT precision (bf16 cotangent and rows), at the
+#  STEP_GRAD_TOL scale.
+QUANT_SEED = 0
+SHUFFLE_SEED = 2
+SDDMM_REL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -770,7 +794,9 @@ COUNTED = {"gru_fwd": ("gru_cuda", "gru_fwd"), "gru_fwd_sg": ("gru_cuda", "gru_f
            "banded_sage_ln_bwd": ("sage_fused", "banded_sage_ln_bwd"),
            "spmm_onehot": ("spmm", "spmm_onehot"), "spmm_dense": ("spmm_dense", "spmm_dense"),
            "spmm_gather": ("spmm_gather", "spmm_gather"),
-           "spmm_banded_int8": ("spmm_banded", "spmm_banded_int8")}
+           "spmm_banded_int8": ("spmm_banded", "spmm_banded_int8"),
+           "quantize_rows": ("quant", "quantize_rows"), "spmm_int8": ("spmm", "spmm_int8"),
+           "spmm_int8_pt": ("spmm", "spmm_int8_pt"), "sddmm": ("sddmm", "sddmm")}
 
 
 def set_counts_to_zero(mods: dict) -> None:
@@ -997,8 +1023,8 @@ def banded_cost(blocks, d: int, h: int, xbytes: int, kind: str, extra: float = 0
 
 def graph_plain_versions(mods: dict):
     """The graph kernels' wrappers (banded, fused SAGE, one-hot, dense,
-    gather, int8 banded) replaced by their plain versions, wherever the
-    port's modules call them."""
+    gather, int8 banded, quantizer, int8 one-hot, SDDMM) replaced by their
+    plain versions, wherever the port's modules call them."""
     from contextlib import ExitStack
 
     stack = ExitStack()
@@ -1006,7 +1032,8 @@ def graph_plain_versions(mods: dict):
     stack.enter_context(mock.patch.object(tsb, "spmm_banded", tsb.spmm_banded_plain))
     stack.enter_context(mock.patch.object(tsb, "spmm_banded_int8", tsb.spmm_banded_int8_plain))
     for mod, name in (("spmm", "spmm_onehot"), ("spmm_dense", "spmm_dense"),
-                      ("spmm_gather", "spmm_gather")):
+                      ("spmm_gather", "spmm_gather"), ("quant", "quantize_rows"),
+                      ("spmm", "spmm_int8"), ("spmm", "spmm_int8_pt"), ("sddmm", "sddmm")):
         stack.enter_context(mock.patch.object(mods[mod], name,
                                               getattr(mods[mod], f"{name}_plain")))
     for name in ("banded_sage_fwd", "banded_sage_bwd", "banded_sage_ln_bwd"):
@@ -1549,14 +1576,203 @@ def check_int8_inference(mods: dict, model, pure, n_pad: int, dev) -> dict:
     return counts
 
 
+def check_int8_sddmm(mods: dict, lays: dict, graph, gen, dev) -> list[dict]:
+    """The int8 and SDDMM path at bench.py's width, through the entry points:
+    ``quantize_rows`` (round to nearest and stochastic) and
+    ``quantize_tensor_xla`` of x [n_pad, 128], ``spmm_int8`` and
+    ``spmm_int8_pt`` over the one-hot layout (k_per_step 2), and
+    ``sddmm_apply`` of x, y [n_pad, 128] over prepare_sddmm's layouts,
+    forward and backward (loss sum(tanh(score) * c)). Counts set to 0 just
+    before the path and read just after; then the same path through the
+    plain versions (bit-equal quantizers, AGG_F32_REL int8 sums, SDDMM_REL
+    scores, STEP_GRAD_TOL gradients), again through the kernels (the same
+    bits), the outputs against the f32 references, and times of kernel,
+    plain version and a library call."""
+    tq, tsp, tsd = mods["quant"], mods["spmm"], mods["sddmm"]
+    (of, _), n1 = lays["onehot"]
+    src, dst = graph
+    d, n_edges = BENCH_DIM, len(src)
+    t0 = time.perf_counter()
+    sf, sr, n2 = tsd.prepare_sddmm(src, dst, BENCH_NODES)
+    log(f"SDDMM layouts in {time.perf_counter() - t0:.3f} s on the host: n_pad {n2}, "
+        f"{sf.num_chunks}/{sr.num_chunks} chunks of {sf.edge_chunk} slots (fwd/rev)")
+    sf, sr = sf.to(dev), sr.to(dev)
+    x = torch.randn((n1, d), generator=gen).to(dev)
+    xa, ya = (torch.randn((n2, d), generator=gen).to(dev) for _ in range(2))
+    coef = torch.randn(n_edges, generator=gen).to(dev)
+
+    def path():
+        xq, xs = tq.quantize_rows(x)
+        sq, ss = tq.quantize_rows(x, stochastic=True, seed=QUANT_SEED)
+        pq, ps = tq.quantize_tensor_xla(x)
+        out_row = tsp.spmm_int8(xq, xs, of, n1, k_per_step=ONEHOT_K)
+        out_pt = tsp.spmm_int8_pt(pq, ps, of, n1, k_per_step=ONEHOT_K)
+        xg, yg = xa.detach().requires_grad_(), ya.detach().requires_grad_()
+        score = tsd.sddmm_apply(xg, yg, sf, sr, n2, True, n_edges)
+        gx, gy = torch.autograd.grad((torch.tanh(score) * coef).sum(), [xg, yg])
+        return dict(q=xq, s=xs, sq=sq, ss=ss, pq=pq, ps=ps, out_row=out_row, out_pt=out_pt,
+                    score=score.detach(), gx=gx, gy=gy)
+
+    set_counts_to_zero(mods)
+    got = path()
+    torch.cuda.synchronize()
+    counts = read_counts(mods)
+    want = {"quantize_rows": 2, "spmm_int8": 1, "spmm_int8_pt": 1, "sddmm": 1, "spmm_onehot": 2}
+    log(f"int8 + SDDMM path: launches {counts}")
+    if any(counts[k] != v for k, v in want.items()) or \
+            sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"int8 + SDDMM path: launches {counts}, want {want}")
+    again = path()
+    with graph_plain_versions(mods):
+        plain = path()
+    torch.cuda.synchronize()
+    unstable = [k for k in got if not torch.equal(got[k], again[k])]
+    errs = {}
+    for name, keys, tol in (("quantize_rows", ("q", "s", "sq", "ss"), None),
+                            ("spmm_int8", ("out_row",), AGG_F32_REL),
+                            ("spmm_int8_pt", ("out_pt",), AGG_F32_REL),
+                            ("sddmm", ("score",), SDDMM_REL)):
+        err = max((got[k].float() - plain[k].float()).abs().max().item() for k in keys)
+        rel = err / max(plain[keys[0]].float().abs().max().item(), 1e-30)
+        equal = all(torch.equal(got[k], plain[k]) for k in keys)
+        log(f"{name} {'/'.join(keys)}: max|err| {err:.3e}, {rel:.2e} of max|plain| (tol "
+            f"{'bit-equal' if tol is None else tol}; bit-equal {equal})")
+        if not all(torch.isfinite(got[k].float()).all() for k in keys) or \
+                (not equal if tol is None else rel > tol):
+            raise AssertionError(f"{name} kernel disagrees with its plain version")
+        errs[name] = err
+    worst = step_grad_excess("sddmm_apply backward", ("x", "y"), (got["gx"], got["gy"]),
+                             (plain["gx"], plain["gy"]))
+    log(f"sddmm_apply gradients of x and y through the kernels vs the plain versions within "
+        f"the STEP_GRAD_TOL scale (largest excess {worst:.3e}); the whole path again through "
+        f"the kernels bit-equal: {not unstable} {unstable or ''}")
+    if unstable:
+        raise AssertionError(f"int8 + SDDMM path: a second run differs in {unstable}")
+
+    # against the references: the f32 aggregation of the unquantized x, the
+    # edge-order reference scores; x / s - q within half a step (round to
+    # nearest) and within one step with mean 0 (stochastic: q = floor(x / s
+    # + u) leaves x / s - q in [-1, 1), unbiased; -1 where the f32 sum
+    # x / s + u rounds up to the next integer, as on the TPU)
+    ref = tsp.spmm_onehot(x, of, precision="highest", k_per_step=ONEHOT_K)
+    for key in ("out_row", "out_pt"):
+        rel = ((got[key] - ref).abs().max() / ref.abs().max()).item()
+        log(f"{key} vs the f32 aggregation of x: {rel:.3e} of max|out| (tol {INT8_REL})")
+        if rel > INT8_REL:
+            raise AssertionError(f"{key}: int8 aggregation far from the f32 one")
+    ts, td = (torch.from_numpy(a).to(dev) for a in graph)
+    sref = tsd.sddmm_xla(xa, ya, ts, td)
+    rel = ((got["score"] - sref).abs().max() / sref.abs().max()).item()
+    near = (x / got["s"] - got["q"].float()).abs().max().item()
+    step = x / got["ss"] - got["sq"].float()
+    lo, hi, mean = step.min().item(), step.max().item(), step.mean().item()
+    log(f"SDDMM scores vs sddmm_xla: {rel:.3e} of max|score| (tol {SDDMM_REL}); x / s - q: "
+        f"round to nearest max |.| {near:.4f}, stochastic in [{lo:.4f}, {hi:.4f}], mean "
+        f"{mean:.2e} over {step.numel()} values")
+    if rel > SDDMM_REL or near > 0.5 or lo < -1.0 or hi >= 1.0 or abs(mean) > 1e-3:
+        raise AssertionError("SDDMM scores or the quantizers off their references")
+    del again, plain, ref, sref, step
+    torch.cuda.empty_cache()
+
+    # times; the library yardsticks are used nowhere in the port
+    xq, xs, pq, ps = got["q"], got["s"], got["pq"], got["ps"]
+    csr = mean_csr(src, dst, n1, dev)
+    deq_row, deq_pt = tq.dequantize_rows(xq, xs), pq.float() * ps
+    pattern = torch.sparse_coo_tensor(
+        torch.stack([td, ts]), torch.ones(n_edges, device=dev), (n2, n2)).coalesce().to_sparse_csr()
+    yt = ya.T.contiguous()
+    live_o = int((of.weight != 0).sum())
+    slots_o, slots_s = of.src_local.numel(), sf.src_local.numel()
+    scales = xs[:, 0].double()
+    zeros = torch.zeros(n1, dtype=torch.int64, device=dev)
+
+    def library(name, fn):
+        try:
+            fn()
+        except (RuntimeError, NotImplementedError) as exc:
+            log(f"{name} library call unavailable: {str(exc).splitlines()[0]}")
+            return None
+        return timed(fn, iters=10)[0]
+
+    runs = [
+        ("quantize_rows", "sldm_gnn_tpu_torch/csrc/quant_rows.cu", "sldm_gnn_tpu/ops/quant.py:85",
+         f"x [{n1}, {d}] f32, round to nearest",
+         lambda: tq.quantize_rows(x), lambda: tq.quantize_rows_plain(x),
+         "torch.quantize_per_channel with the kernel's scales (no PyTorch call computes the "
+         "absmax scales too)",
+         lambda: torch.quantize_per_channel(x, scales, zeros, 0, torch.qint8),
+         (n1 * d * 4 + n1 * d + n1 * 4, 3.0 * n1 * d), PEAK_F32_FLOP_S),
+        ("spmm_int8", "sldm_gnn_tpu_torch/csrc/spmm_onehot_int8.cu",
+         "sldm_gnn_tpu/ops/spmm.py:329",
+         f"N={n1} D={d} one-hot fwd layout (tile {ONEHOT_TILE}, {of.num_chunks} chunks of "
+         f"{of.edge_chunk}), int8 x, per-row scales, f32 out",
+         lambda: tsp.spmm_int8(xq, xs, of, n1, k_per_step=ONEHOT_K),
+         lambda: tsp.spmm_int8_plain(xq, xs, of, n1, k_per_step=ONEHOT_K),
+         "cuSPARSE CSR f32 on the dequantized x", lambda: torch.sparse.mm(csr, deq_row),
+         (of.num_chunks * 8 + slots_o * 12 + n1 * d + n1 * 4 + n1 * d * 4, 2.0 * live_o * d),
+         PEAK_F32_FLOP_S),
+        ("spmm_int8_pt", "sldm_gnn_tpu_torch/csrc/spmm_onehot_int8.cu",
+         "sldm_gnn_tpu/ops/spmm.py:443",
+         f"N={n1} D={d} one-hot fwd layout, int8 x, per-tensor scale, f32 out",
+         lambda: tsp.spmm_int8_pt(pq, ps, of, n1, k_per_step=ONEHOT_K),
+         lambda: tsp.spmm_int8_pt_plain(pq, ps, of, n1, k_per_step=ONEHOT_K),
+         "cuSPARSE CSR f32 on the dequantized x", lambda: torch.sparse.mm(csr, deq_pt),
+         (of.num_chunks * 8 + slots_o * 12 + n1 * d + 4 + n1 * d * 4, 2.0 * live_o * d),
+         PEAK_F32_FLOP_S),
+        ("sddmm", "sldm_gnn_tpu_torch/csrc/sddmm.cu", "sldm_gnn_tpu/ops/sddmm.py:92",
+         f"N={n2} D={d} prepare_sddmm fwd layout (tile {sf.tile}, {sf.num_chunks} chunks of "
+         f"{sf.edge_chunk}), f32",
+         lambda: tsd.sddmm(xa, ya, sf), lambda: tsd.sddmm_plain(xa, ya, sf),
+         "torch.sparse.sampled_addmm on a CSR of the graph",
+         lambda: torch.sparse.sampled_addmm(pattern, xa, yt, beta=0.0),
+         (sf.num_chunks * 8 + slots_s * 12 + 2 * n2 * d * 4 + slots_s * 4, 2.0 * n_edges * d),
+         PEAK_F32_FLOP_S),
+    ]
+    entries = []
+    for name, source, replaces, shape, kernel, plain_fn, lib_name, lib_fn, cost, peak in runs:
+        ms, host = timed(kernel, iters=10)
+        plain_ms, _ = timed(plain_fn, iters=3, warmup=1)
+        library_ms = library(name, lib_fn)
+        bound_ms, bound_by = bound(*cost, peak)
+        lib_txt = "unavailable" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"{name} timing ({shape}): kernel {ms:.4f} ms (host issue {host:.4f}), plain "
+            f"{plain_ms:.4f} ms, {lib_name} {lib_txt}, bound {bound_ms:.4f} ms ({bound_by}: "
+            f"{cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.2f} G operations)")
+        entries.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                            shape=shape, path="int8 + SDDMM", launches=counts[name],
+                            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+    return entries
+
+
+def check_reorder(mods: dict, graph) -> None:
+    """graph/reorder on bench.py's graph with its node ids shuffled as
+    BENCH_SHUFFLE=1 shuffles them: host seconds and the recovered span."""
+    tro = mods["reorder"]
+    src, dst = graph
+    scramble = np.random.default_rng(SHUFFLE_SEED).permutation(BENCH_NODES)
+    s2, d2 = scramble[src], scramble[dst]
+    span0 = tro.source_span_tiles(s2, d2, BENCH_NODES)
+    t0 = time.perf_counter()
+    perm = tro.reorder_for_banding(s2, d2, BENCH_NODES)
+    secs = time.perf_counter() - t0
+    span1 = tro.source_span_tiles(*tro.relabel_edges(s2, d2, perm), BENCH_NODES)
+    log(f"reorder of the shuffled graph ({len(src)} edges): {secs:.3f} s on the host, span "
+        f"{span0} -> {span1} tiles of {BANDED_TILE} (unshuffled "
+        f"{tro.source_span_tiles(src, dst, BENCH_NODES)})")
+    if perm is None or span1 > 16:
+        raise AssertionError("the reorder did not band the shuffled graph")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
               file=sys.stderr)
         return 2
+    from sldm_gnn_tpu_torch.graph import reorder
     from sldm_gnn_tpu_torch.ops import _build, banded_residual, gru_cuda, quant, sage_fused, spmm
     from sldm_gnn_tpu_torch.ops import knn as knn_ops
-    from sldm_gnn_tpu_torch.ops import spmm_banded, spmm_dense, spmm_gather, spmm_hybrid
+    from sldm_gnn_tpu_torch.ops import sddmm, spmm_banded, spmm_dense, spmm_gather, spmm_hybrid
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1585,7 +1801,7 @@ def main() -> int:
     mods = {"gru_cuda": gru_cuda, "knn_ops": knn_ops, "spmm_banded": spmm_banded,
             "sage_fused": sage_fused, "banded_residual": banded_residual, "spmm": spmm,
             "spmm_dense": spmm_dense, "spmm_gather": spmm_gather, "spmm_hybrid": spmm_hybrid,
-            "quant": quant}
+            "quant": quant, "sddmm": sddmm, "reorder": reorder}
     with tempfile.TemporaryDirectory() as tmp:
         launches = check_serving(gru_cuda, knn_ops, Path(tmp), dev)
         for e in entries:
@@ -1649,6 +1865,10 @@ def main() -> int:
         e["path"], counts = launch_of[e["name"]]
         e["launches"] = counts[e["name"]]
     entries += layout_entries
+    del lays["dense"], lays["gather"], lays["hybrid"]
+    torch.cuda.empty_cache()
+    entries += check_int8_sddmm(mods, lays, graph, gen, dev)
+    check_reorder(mods, graph)
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -177,9 +177,22 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, i, i, i,            # a, bo, nb, s_span, tile
         p, i, p, p, p, p,         # xq, D, x_scale, rs, out, stream
     ]
+    lib.quant_rows_launch.argtypes = [
+        p, i, i, i, ctypes.c_uint32,  # x, rows, D, stochastic, seed
+        p, p, p,                      # q, scale, stream
+    ]
+    lib.spmm_onehot_int8_launch.argtypes = [
+        p, p, p, p, p, i, i, i,   # row_ptr, perm, block_meta, src_local, weight, ec, tile, rows
+        p, i, p, i, i, p, p,      # xq, D, scales, per_row, out_bf16, out, stream
+    ]
+    lib.sddmm_launch.argtypes = [
+        p, p, p, p, i, i, i,      # block_meta, src_local, dst_local, weight, W, ec, tile
+        p, p, i, p, p,            # x, y, D, out, stream
+    ]
     for name in ("spmm_banded_launch", "sage_fwd_launch", "sage_bwd_grid", "sage_bwd_launch",
                  "ln_bwd_prologue_launch", "spmm_onehot_launch", "spmm_dense_launch",
-                 "spmm_gather_launch", "spmm_banded_int8_launch"):
+                 "spmm_gather_launch", "spmm_banded_int8_launch", "quant_rows_launch",
+                 "spmm_onehot_int8_launch", "sddmm_launch"):
         getattr(lib, name).restype = i
     lib.knn_topk_launch.argtypes = [p, i, p, i, i, p, p, p]
     lib.knn_topk_launch.restype = i

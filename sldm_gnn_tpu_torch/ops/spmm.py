@@ -11,8 +11,13 @@ of a weighted sum is the same sum over the reversed edges, so
 sums their exact products in f32 (the TPU kernel's single-pass MXU form);
 ``"highest"`` sums f32 products and needs f32 x. The output has x's dtype.
 
-Not ported: the int8 variants ``spmm_pallas_int8`` and
-``spmm_pallas_int8_pt`` (per-row and per-tensor int8 x).
+The int8 variants, :func:`spmm_int8` and :func:`spmm_int8_pt` (the
+kernels of ``csrc/spmm_onehot_int8.cu``), aggregate int8 x with per-row
+scales (from :func:`.quant.quantize_rows`) or one per-tensor scale (from
+:func:`.quant.quantize_tensor_xla`), in the TPU kernels' rounding: per
+row, the f32 product ``w_e * xs[src_e]`` rounded to bf16 times the exact
+int8 value; per tensor, ``bf16(w_e)`` times the int8 value and one
+multiply by the scale at the write; both sum in f32.
 """
 
 from __future__ import annotations
@@ -140,6 +145,108 @@ def spmm_onehot(x: torch.Tensor, blocked: BlockedEdges, *, precision: str = "def
 
 
 spmm_onehot.launches = 0
+
+
+# ------------------------------------------------------------ the int8 kernels
+
+
+def _check_int8(xq: torch.Tensor, scales: torch.Tensor, blocked: BlockedEdges, per_row: bool,
+                k_per_step: int, out_dtype) -> None:
+    """The JAX int8 kernels' contracts, as ValueErrors."""
+    if xq.dim() != 2 or xq.dtype != torch.int8:
+        raise ValueError(f"int8 SpMM takes [n_pad, D] int8 x, got {tuple(xq.shape)} {xq.dtype}")
+    if xq.shape[0] % blocked.tile:
+        raise ValueError(f"x rows {xq.shape[0]} not a multiple of {blocked.tile}")
+    want = (xq.shape[0], 1) if per_row else (1,)
+    if tuple(scales.shape) != want or scales.dtype != torch.float32:
+        raise ValueError(f"{'per-row' if per_row else 'per-tensor'} scales must be {want} "
+                         f"float32, got {tuple(scales.shape)} {scales.dtype}")
+    if out_dtype not in (torch.float32, BF16):
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    check_steps(blocked, k_per_step)
+
+
+def _int8_plain(xq, scales, blocked, per_row, k_per_step, out_dtype):
+    _check_int8(xq, scales, blocked, per_row, k_per_step, out_dtype)
+    src, dst, w = global_edges(blocked)
+    w = bf16r(w * scales[src, 0]) if per_row else bf16r(w)
+    out = w.new_zeros(xq.shape).index_add_(0, dst, xq[src].float() * w[:, None])
+    return (out if per_row else out * scales).to(out_dtype)
+
+
+def spmm_int8_plain(xq: torch.Tensor, xs: torch.Tensor, blocked: BlockedEdges, num_nodes: int,
+                    *, k_per_step: int = 1, out_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of the per-row kernel: ``out[i] = sum_e
+    bf16(w_e * xs[src_e]) * xq[src_e]`` in f32."""
+    return _int8_plain(xq, xs, blocked, True, k_per_step, out_dtype)
+
+
+def spmm_int8_pt_plain(xq: torch.Tensor, scale: torch.Tensor, blocked: BlockedEdges,
+                       num_nodes: int, *, k_per_step: int = 1,
+                       out_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of the per-tensor kernel: ``out[i] = scale *
+    sum_e bf16(w_e) * xq[src_e]`` in f32."""
+    return _int8_plain(xq, scale, blocked, False, k_per_step, out_dtype)
+
+
+def _int8_launch(name, xq, scales, blocked, per_row, k_per_step, out_dtype):
+    _check_int8(xq, scales, blocked, per_row, k_per_step, out_dtype)
+    if xq.device.type != "cuda" or not xq.is_contiguous():
+        raise ValueError(f"{name} runs on contiguous CUDA or CPU tensors, got {xq.device}")
+    if blocked.weight.device != xq.device or scales.device != xq.device:
+        raise ValueError(f"{name}: the layout and the scales must be on {xq.device}")
+    n, d = xq.shape
+    if d > 128:
+        raise ValueError(f"{name}: feature width {d} > 128 is not taken")
+    row_ptr, perm = onehot_plan(blocked, n)
+    meta = blocked.block_meta.to(torch.int32).contiguous()
+    src_local = blocked.src_local.to(torch.int32).contiguous()
+    weight = blocked.weight.float().contiguous()
+    scales = scales.contiguous()
+    out = torch.empty((n, d), dtype=out_dtype, device=xq.device)
+    from . import _build
+
+    lib = _build.load()
+    with torch.cuda.device(xq.device):
+        code = lib.spmm_onehot_int8_launch(
+            row_ptr.data_ptr(), perm.data_ptr(), meta.data_ptr(), src_local.data_ptr(),
+            weight.data_ptr(), blocked.edge_chunk, blocked.tile, n, xq.data_ptr(), d,
+            scales.data_ptr(), int(per_row), int(out_dtype == BF16), out.data_ptr(),
+            torch.cuda.current_stream(xq.device).cuda_stream)
+    _build.check(lib, code, f"{name} kernel (rows={n}, D={d})")
+    return out
+
+
+def spmm_int8(xq: torch.Tensor, xs: torch.Tensor, blocked: BlockedEdges, num_nodes: int, *,
+              k_per_step: int = 1, out_dtype=torch.float32) -> torch.Tensor:
+    """:func:`spmm_int8_plain`'s function, the counterpart of
+    ``spmm_pallas_int8``: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. ``xq [n_pad, D] int8`` (D <= 128), ``xs
+    [n_pad, 1] f32``."""
+    if xq.device.type == "cpu":
+        return spmm_int8_plain(xq, xs, blocked, num_nodes, k_per_step=k_per_step,
+                               out_dtype=out_dtype)
+    out = _int8_launch("spmm_int8", xq, xs, blocked, True, k_per_step, out_dtype)
+    spmm_int8.launches += 1
+    return out
+
+
+def spmm_int8_pt(xq: torch.Tensor, scale: torch.Tensor, blocked: BlockedEdges, num_nodes: int,
+                 *, k_per_step: int = 1, out_dtype=torch.float32) -> torch.Tensor:
+    """:func:`spmm_int8_pt_plain`'s function, the counterpart of
+    ``spmm_pallas_int8_pt``: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. ``xq [n_pad, D] int8`` (D <= 128), ``scale
+    [1] f32``."""
+    if xq.device.type == "cpu":
+        return spmm_int8_pt_plain(xq, scale, blocked, num_nodes, k_per_step=k_per_step,
+                                  out_dtype=out_dtype)
+    out = _int8_launch("spmm_int8_pt", xq, scale, blocked, False, k_per_step, out_dtype)
+    spmm_int8_pt.launches += 1
+    return out
+
+
+spmm_int8.launches = 0
+spmm_int8_pt.launches = 0
 
 
 # ------------------------------------------------------------ autograd

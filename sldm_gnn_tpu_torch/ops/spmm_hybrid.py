@@ -10,9 +10,6 @@ dense layouts of :mod:`.spmm_dense`; the other edges to the one-hot
 layouts of :mod:`.spmm`. An aggregation is the sum of the two halves, and
 its backward the sum of their backwards. Mean weights use the full degree
 on both halves.
-
-Not ported: ``prepare_auto_mean_aggregate(reorder=True)`` (it needs
-``graph/reorder.py``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -207,9 +204,27 @@ def prepare_auto_mean_aggregate(
     graph is near-banded; else int8 dense tiles (bf16 weight tiles past 127
     duplicate edges); else the hybrid split. Returns ``(layout_fwd,
     layout_rev, n_pad)``, ``layout_rev`` None where the layout carries both
-    directions."""
+    directions.
+
+    ``reorder=True`` first tries a bandwidth-reducing node order
+    (:func:`..graph.reorder.reorder_for_banding`: Hilbert on ``coords``
+    when given, else RCM) and returns ``(layout_fwd, layout_rev, n_pad,
+    perm)``; ``perm`` (``perm[new] = old``) is None when the graph is
+    banded already or no order bands it, else the layouts are in the new
+    ids and x must be permuted once on the host (``x[perm]``)."""
     if reorder:
-        raise NotImplementedError("reorder=True needs graph/reorder.py, which is not ported")
+        from ..graph.reorder import relabel_edges, reorder_for_banding
+
+        try:
+            perm = reorder_for_banding(src, dst, num_nodes, tile=tile, coords=coords)
+        except ValueError:
+            perm = None
+        if perm is not None:
+            src, dst = relabel_edges(src, dst, perm)
+        out = prepare_auto_mean_aggregate(
+            src, dst, num_nodes, tile=tile, dense_k=dense_k, k_per_step=k_per_step,
+            edge_chunk=edge_chunk, a_budget_bytes=a_budget_bytes, min_pair_edges=min_pair_edges)
+        return (*out, perm)
     from .banded_residual import prepare_banded_residual_mean_aggregate
     from .spmm_banded import prepare_banded_mean_aggregate
     from .spmm_dense import prepare_dense_mean_aggregate

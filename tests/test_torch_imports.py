@@ -44,6 +44,10 @@ LAYOUT_SLICE = ["sldm_gnn_tpu_torch/ops/spmm.py", "sldm_gnn_tpu_torch/ops/spmm_d
                 "sldm_gnn_tpu_torch/ops/quant.py"]
 
 
+INT8_SDDMM_SLICE = ["sldm_gnn_tpu_torch/ops/sddmm.py", "sldm_gnn_tpu_torch/graph/reorder.py",
+                    "sldm_gnn_tpu_torch/graph/layout_io.py"]
+
+
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "sldm_gnn_tpu_torch/ops/gru_cuda.py" in names
@@ -51,6 +55,7 @@ def test_port_files_exist():
     assert set(TRAINING_SLICE) <= names  # the scan covers the training slice
     assert set(BANDED_SLICE) <= names  # and the banded GraphSAGE slice
     assert set(LAYOUT_SLICE) <= names  # and the one-hot, dense, hybrid and gather layouts
+    assert set(INT8_SDDMM_SLICE) <= names  # and the int8 one-hot, SDDMM, reorder, layout files
 
 
 def test_port_modules_import_with_jax_unavailable():

@@ -6,10 +6,14 @@ tests/test_spmm.py, inputs made with numpy from a seed:
     100k edges, and its native library above;
   * the plain version of csrc/spmm_onehot.cu agrees with the JAX Pallas
     kernel run in interpret mode, at DEFAULT and HIGHEST precision;
-  * spmm_apply's gradient agrees with the JAX custom VJP.
+  * spmm_apply's gradient agrees with the JAX custom VJP;
+  * the plain versions of csrc/spmm_onehot_int8.cu (per-row and
+    per-tensor int8 x) agree with spmm_pallas_int8 and spmm_pallas_int8_pt
+    in interpret mode within 1e-5 of max|out|, at k_per_step 1 and 2
+    (tests/test_spmm.py:296-385), and keep their contracts.
 
-The CUDA kernel runs only on the card, where chip_smoke.py holds it
-against this plain version."""
+The CUDA kernels run only on the card, where chip_smoke.py holds them
+against these plain versions."""
 
 import dataclasses
 
@@ -20,9 +24,11 @@ import pytest
 import torch
 
 from sldm_gnn_tpu.graph import csr as jcsr
+from sldm_gnn_tpu.ops import quant as jquant
 from sldm_gnn_tpu.ops import spmm as jspmm
 
 from sldm_gnn_tpu_torch.graph import csr as tcsr
+from sldm_gnn_tpu_torch.ops import quant as tquant
 from sldm_gnn_tpu_torch.ops import spmm as tspmm
 
 # the plain version against the interpret kernel: the same products (bf16
@@ -208,3 +214,121 @@ def test_layout_moves_and_keeps_its_fields(rng):
     moved = b.to("cpu")
     assert dataclasses.asdict(moved).keys() == dataclasses.asdict(b).keys()
     assert (moved.tile, moved.step_chunks, moved.edge_chunk) == (128, 2, 256)
+
+
+# ------------------------------------------------------------ int8 x
+
+
+def _int8_case(rng, per_row, n, e, d, step_chunks):
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    n_pad = tcsr.pad_nodes(n)
+    w = tcsr.mean_weights(dst, n_pad)
+    kw = dict(weight=w, step_chunks=step_chunks)
+    tb, jb = tcsr.block_edges(src, dst, n_pad, **kw), jcsr.block_edges(src, dst, n_pad, **kw)
+    x = rng.standard_normal((n_pad, d)).astype(np.float32)
+    quant = jquant.quantize_rows_xla if per_row else jquant.quantize_tensor_xla
+    xq, scales = (np.array(a) for a in quant(jnp.asarray(x)))
+    return (src, dst, w, n_pad, x), tb, jb, xq, scales
+
+
+@pytest.mark.parametrize("per_row", [True, False], ids=["per_row", "per_tensor"])
+@pytest.mark.parametrize("k_per_step", [1, 2])
+def test_int8_plain_matches_pallas(rng, per_row, k_per_step):
+    """tests/test_spmm.py:296-385's sizes: the plain version against the
+    interpret kernel (the same bf16-rounded weights and exact int8 values,
+    f32 sums in another order), and both against the dequantized
+    reference at the JAX tests' 5e-2."""
+    n, e, d = (250, 2000, 128) if k_per_step == 1 else (200, 1200, 64)
+    (src, dst, w, n_pad, x), tb, jb, xq, scales = _int8_case(rng, per_row, n, e, d, k_per_step)
+    jfn = jspmm.spmm_pallas_int8 if per_row else jspmm.spmm_pallas_int8_pt
+    tfn = tspmm.spmm_int8 if per_row else tspmm.spmm_int8_pt
+    want = np.asarray(jfn(jnp.asarray(xq), jnp.asarray(scales), jax.tree.map(jnp.asarray, jb),
+                          n_pad, interpret=True, k_per_step=k_per_step))
+    got = tfn(torch.from_numpy(xq), torch.from_numpy(scales), tb, n_pad, k_per_step=k_per_step)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n_pad, d)
+    assert _max_rel(got.numpy(), want) < KERNEL_REL
+    deq = xq.astype(np.float32) * (scales if per_row else scales[0])
+    ref = np.zeros((n_pad, d), np.float32)
+    np.add.at(ref, dst, deq[src] * w[:, None])
+    np.testing.assert_allclose(got.numpy(), ref, rtol=5e-2, atol=5e-3)
+
+
+@pytest.mark.parametrize("per_row", [True, False], ids=["per_row", "per_tensor"])
+def test_int8_rounding_is_the_kernels(rng, per_row):
+    """The per-row weight is bf16(w * xs[src]), not w times a rounded x:
+    the plain version equals that sum computed here in f64 to f32 rounding,
+    and the bf16 output is its rounding."""
+    (src, dst, w, n_pad, x), tb, _, xq, scales = _int8_case(rng, per_row, 300, 2500, 32, 1)
+    xq_t, sc_t = torch.from_numpy(xq), torch.from_numpy(scales)
+    fn = tspmm.spmm_int8_plain if per_row else tspmm.spmm_int8_pt_plain
+    got = fn(xq_t, sc_t, tb, n_pad)
+    wr = (torch.from_numpy(w) * (sc_t[torch.from_numpy(src), 0] if per_row else 1.0))
+    wr = wr.to(torch.bfloat16).double().numpy()
+    ref = np.zeros((n_pad, xq.shape[1]), np.float64)
+    np.add.at(ref, dst, xq[src].astype(np.float64) * wr[:, None])
+    if not per_row:
+        ref = ref * np.float64(scales[0])
+    assert _max_rel(got.numpy(), ref) < KERNEL_REL
+    got16 = fn(xq_t, sc_t, tb, n_pad, out_dtype=torch.bfloat16)
+    assert got16.dtype == torch.bfloat16 and torch.equal(got16, got.to(torch.bfloat16))
+
+
+def test_int8_contracts_raise(rng):
+    (src, dst, w, n_pad, x), b1, jb1, xq, xs = _int8_case(rng, True, 300, 900, 8, 1)
+    b2 = tcsr.block_edges(src, dst, n_pad, weight=w, step_chunks=2)
+    xq_t, xs_t = torch.from_numpy(xq), torch.from_numpy(xs)
+    scale = torch.ones(1)
+    for fn in (tspmm.spmm_int8, tspmm.spmm_int8_plain):
+        with pytest.raises(ValueError, match="int8 x"):
+            fn(xq_t.float(), xs_t, b1, n_pad)
+        with pytest.raises(ValueError, match="per-row scales"):
+            fn(xq_t, xs_t[:, 0], b1, n_pad)
+        with pytest.raises(ValueError, match="cannot run at k_per_step=4"):
+            fn(xq_t, xs_t, b2, n_pad, k_per_step=4)
+        if b1.num_chunks % 2:
+            with pytest.raises(ValueError, match="not divisible"):
+                fn(xq_t, xs_t, b1, n_pad, k_per_step=2)
+    for fn in (tspmm.spmm_int8_pt, tspmm.spmm_int8_pt_plain):
+        with pytest.raises(ValueError, match="per-tensor scales"):
+            fn(xq_t, xs_t, b1, n_pad)
+        with pytest.raises(ValueError, match="int8 x"):
+            fn(xq_t.to(torch.int16), scale, b1, n_pad)
+        with pytest.raises(ValueError, match="out_dtype"):
+            fn(xq_t, scale, b1, n_pad, out_dtype=torch.float16)
+    # the JAX kernels' own contracts, which these mirror
+    jb = jax.tree.map(jnp.asarray, jb1)
+    with pytest.raises(AssertionError):
+        jspmm.spmm_pallas_int8(jnp.asarray(xq, jnp.float32), jnp.asarray(xs), jb, n_pad,
+                               interpret=True)
+    with pytest.raises(AssertionError):
+        jspmm.spmm_pallas_int8(jnp.asarray(xq), jnp.asarray(xs[:, 0]), jb, n_pad,
+                               interpret=True)
+    with pytest.raises(AssertionError):
+        jspmm.spmm_pallas_int8_pt(jnp.asarray(xq), jnp.asarray(xs), jb, n_pad, interpret=True)
+    before = (tspmm.spmm_int8.launches, tspmm.spmm_int8_pt.launches)
+    assert torch.equal(tspmm.spmm_int8(xq_t, xs_t, b2, n_pad, k_per_step=2),
+                       tspmm.spmm_int8_plain(xq_t, xs_t, b2, n_pad))
+    assert (tspmm.spmm_int8.launches, tspmm.spmm_int8_pt.launches) == before
+
+
+def test_int8_with_the_ports_quantizers(rng):
+    """quantize_rows -> spmm_int8 and quantize_tensor_xla -> spmm_int8_pt,
+    the port end to end, against the JAX pipeline in interpret mode."""
+    n, e, d = 260, 2100, 48
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    tf, _, n_pad = tspmm.prepare_mean_aggregate(src, dst, n, step_chunks=2)
+    jf, _, _ = jspmm.prepare_mean_aggregate(src, dst, n, step_chunks=2)
+    jf = jax.tree.map(jnp.asarray, jf)
+    x = rng.standard_normal((n_pad, d)).astype(np.float32)
+    xq, xs = tquant.quantize_rows(torch.from_numpy(x))
+    jq, js = jquant.quantize_rows_pallas(jnp.asarray(x), block_rows=128, interpret=True)
+    got = tspmm.spmm_int8(xq, xs, tf, n_pad, k_per_step=2).numpy()
+    want = np.asarray(jspmm.spmm_pallas_int8(jq, js, jf, n_pad, interpret=True, k_per_step=2))
+    # ties of the two quantizers may land one step apart (test_quant.py:33)
+    assert _max_rel(got, want) < 1e-2
+    pq, ps = tquant.quantize_tensor_xla(torch.from_numpy(x))
+    jpq, jps = jquant.quantize_tensor_xla(jnp.asarray(x))
+    got = tspmm.spmm_int8_pt(pq, ps, tf, n_pad, k_per_step=2).numpy()
+    want = np.asarray(jspmm.spmm_pallas_int8_pt(jpq, jps, jf, n_pad, interpret=True,
+                                                k_per_step=2))
+    assert _max_rel(got, want) < KERNEL_REL

@@ -272,5 +272,12 @@ def test_auto_layout_picks_what_jax_picks(rng, case):
     else:
         assert isinstance(tf, tsb.BandedBlocks) and tf.s_span == jf.s_span
         np.testing.assert_array_equal(tf.a.numpy(), np.asarray(jf.a))
-    with pytest.raises(NotImplementedError):
-        tsh.prepare_auto_mean_aggregate(src, dst, n, reorder=True)
+    # reorder=True: the same permutation (RCM on the residual and hybrid
+    # graphs; None where the graph is banded already or not bandable) and
+    # the same layout kind
+    *tl, tperm = tsh.prepare_auto_mean_aggregate(src, dst, n, reorder=True, **kw)
+    *jl, jperm = jsh.prepare_auto_mean_aggregate(src, dst, n, reorder=True, **kw)
+    assert (tperm is None) == (jperm is None) and tl[2] == jl[2]
+    if tperm is not None:
+        np.testing.assert_array_equal(tperm, jperm)
+    assert type(tl[0]).__name__ == type(jl[0]).__name__
