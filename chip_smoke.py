@@ -48,7 +48,18 @@ launch count set to 0 just before a path and read just after it:
     ``prepare_sddmm``'s layouts (the backward through the one-hot kernel):
     each new kernel against its plain version, two launches bit-equal, the
     outputs against the f32 references, timed against a library call; and
-    the RCM reorder of the graph shuffled as ``BENCH_SHUFFLE=1`` does.
+    the RCM reorder of the graph shuffled as ``BENCH_SHUFFLE=1`` does;
+  * the v1 GRU scan (``gru_forward_v1``) at the flagship training batch's
+    rows, one and two layers, forward and backward against the f32 scan
+    under autograd, its widest H probed, timed against cuDNN's f32 GRU;
+  * GruSage's other paths on the training batch: the aligned batch
+    (``pad_and_batch_aligned``, vmax 11) with ``MapData.adj`` against the
+    flat batch, ``compute_dtype='bfloat16'`` against f32, and
+    ``sage_type='attention'``, 20 steps each;
+  * the megakernel SpMM (``spmm_mk``, both modes) on bench.py's graph;
+  * the cmap tier on a scattered low-degree graph of 200 064 nodes
+    (``tests/test_spmm_cmap.py``'s generator): its four banded kernels,
+    bench.py's fused step and the classifier (``fused_ln`` and unfused).
 
 It prints its findings, a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -185,6 +196,26 @@ INT8_REL = 5e-2
 QUANT_SEED = 0
 SHUFFLE_SEED = 2
 SDDMM_REL = 1e-5
+# The v1 GRU scan (f32 throughout) against the f32 scan under
+# autograd: the JAX package's contract for gru_scan_pallas
+# (tests/test_gru_pallas.py:14-66): outputs at rtol/atol 1e-5; gradients
+# at rtol 2e-4 (one layer) and 5e-4 (two) plus that times max|g| + 1e-6
+# (f32 sums in another order, compounded over 100 frames).
+SCAN_TOL = 1e-5
+SCAN_GRAD_TOL = {1: 2e-4, 2: 5e-4}
+# the megakernel layout of bench.py's graph: block_edges at tile 128 and
+# chunks of 256 slots (auto_edge_chunk's choice), mean weights
+MK_CHUNK = 256
+# the cmap tier's graph: tests/test_spmm_cmap.py's scattered low-degree
+# generator at 200 064 nodes and bench.py's degree 16
+CMAP_NODES = 200_064
+# GruSage's aligned batch: the flagship packs hold at most 11 vehicles; the
+# aligned logits against the flat ones at the JAX test's 2e-5
+# (tests/test_model_parity.py:262); bf16 compute against f32 at its 0.1 /
+# 0.05 (:259)
+ALIGNED_VMAX = 11
+DENSE_TOL = 2e-5
+BF16_RTOL, BF16_ATOL = 0.1, 0.05
 
 
 def log(msg: str) -> None:
@@ -751,10 +782,11 @@ def flagship_config(gru_impl: str, dropout: float | None):
         gru_impl=gru_impl, knn_impl="pallas")
 
 
-def synth_training_data(dev):
+def synth_training_data(dev, with_graphs: bool = False):
     """bench_flagship.py's recipe: PACKS graphs of 8-11 fully connected
     vehicles with Bernoulli(0.3) labels, and a live map of SEGMENTS segments
-    (9 features, z-scored; 4 random edges a segment; centroids ~ N(0, 100))."""
+    (9 features, z-scored; 4 random edges a segment; centroids ~ N(0, 100)).
+    Returns (batch, map data), and with ``with_graphs`` the graphs too."""
     from sldm_gnn_tpu_torch.graph.batching import compute_batch_dims, pad_and_batch
     from sldm_gnn_tpu_torch.graph.containers import GraphArrays
     from sldm_gnn_tpu_torch.models.map_modules import MapData, map_zscore_norm
@@ -782,7 +814,7 @@ def synth_training_data(dev):
         edge_dst=torch.from_numpy(rng.integers(0, SEGMENTS, 4 * SEGMENTS)),
         centroids=torch.from_numpy(rng.standard_normal((SEGMENTS, 2)).astype(np.float32) * 100),
     ).to(dev)
-    return batch, md
+    return (batch, md, graphs) if with_graphs else (batch, md)
 
 
 COUNTED = {"gru_fwd": ("gru_cuda", "gru_fwd"), "gru_fwd_sg": ("gru_cuda", "gru_fwd_sg"),
@@ -796,7 +828,9 @@ COUNTED = {"gru_fwd": ("gru_cuda", "gru_fwd"), "gru_fwd_sg": ("gru_cuda", "gru_f
            "spmm_gather": ("spmm_gather", "spmm_gather"),
            "spmm_banded_int8": ("spmm_banded", "spmm_banded_int8"),
            "quantize_rows": ("quant", "quantize_rows"), "spmm_int8": ("spmm", "spmm_int8"),
-           "spmm_int8_pt": ("spmm", "spmm_int8_pt"), "sddmm": ("sddmm", "sddmm")}
+           "spmm_int8_pt": ("spmm", "spmm_int8_pt"), "sddmm": ("sddmm", "sddmm"),
+           "gru_scan_fwd": ("gru_cuda", "gru_scan_fwd"),
+           "gru_scan_bwd": ("gru_cuda", "gru_scan_bwd"), "spmm_mk": ("spmm_mk", "spmm_mk")}
 
 
 def set_counts_to_zero(mods: dict) -> None:
@@ -1023,8 +1057,9 @@ def banded_cost(blocks, d: int, h: int, xbytes: int, kind: str, extra: float = 0
 
 def graph_plain_versions(mods: dict):
     """The graph kernels' wrappers (banded, fused SAGE, one-hot, dense,
-    gather, int8 banded, quantizer, int8 one-hot, SDDMM) replaced by their
-    plain versions, wherever the port's modules call them."""
+    gather, int8 banded, quantizer, int8 one-hot, SDDMM, megakernel)
+    replaced by their plain versions, wherever the port's modules call
+    them."""
     from contextlib import ExitStack
 
     stack = ExitStack()
@@ -1033,7 +1068,8 @@ def graph_plain_versions(mods: dict):
     stack.enter_context(mock.patch.object(tsb, "spmm_banded_int8", tsb.spmm_banded_int8_plain))
     for mod, name in (("spmm", "spmm_onehot"), ("spmm_dense", "spmm_dense"),
                       ("spmm_gather", "spmm_gather"), ("quant", "quantize_rows"),
-                      ("spmm", "spmm_int8"), ("spmm", "spmm_int8_pt"), ("sddmm", "sddmm")):
+                      ("spmm", "spmm_int8"), ("spmm", "spmm_int8_pt"), ("sddmm", "sddmm"),
+                      ("spmm_mk", "spmm_mk")):
         stack.enter_context(mock.patch.object(mods[mod], name,
                                               getattr(mods[mod], f"{name}_plain")))
     for name in ("banded_sage_fwd", "banded_sage_bwd", "banded_sage_ln_bwd"):
@@ -1044,11 +1080,12 @@ def graph_plain_versions(mods: dict):
     return stack
 
 
-def check_banded_kernels(mods: dict, resid, pure, graph, gen, dev) -> list[dict]:
+def check_banded_kernels(mods: dict, resid, pure, graph, gen, dev, label: str = "") -> list[dict]:
     """The four banded kernels against their plain versions at bench.py's
     shape, on both layouts, with bf16 and f32 activations and weights, the
     resid and ln options, and two launches bit-equal; then times of kernel,
-    plain version and library yardstick (bf16, the bench's dtype)."""
+    plain version and library yardstick (bf16, the bench's dtype). `label`
+    prefixes the log lines (the cmap run's)."""
     tsb, tsf, tbr = mods["spmm_banded"], mods["sage_fused"], mods["banded_residual"]
     n_pad, d, h = resid.n_pad, BENCH_DIM, BENCH_DIM
     errs = {k: 0.0 for k in ("spmm_banded", "banded_sage_fwd", "banded_sage_bwd",
@@ -1066,9 +1103,9 @@ def check_banded_kernels(mods: dict, resid, pure, graph, gen, dev) -> list[dict]
         rel = [relerr(a, b) for a, b in zip(got, want)]
         stable = all(torch.equal(a, b) for a, b in zip(got, again))
         err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
-        rel_r = [] if rows is None else [relerr(a[rows], b[rows]) for a, b in zip(got, want)
-                                         if a.shape[0] == n_pad]
-        log(f"{name} {what}: max|err|/max|plain| per output {['%.2e' % e for e in rel]}"
+        rel_r = [] if rows is None or rows.numel() == 0 else [
+            relerr(a[rows], b[rows]) for a, b in zip(got, want) if a.shape[0] == n_pad]
+        log(f"{label}{name} {what}: max|err|/max|plain| per output {['%.2e' % e for e in rel]}"
             + ("" if rows is None else f", on the {rows.numel()} rows of the residual groups "
                f"{['%.2e' % e for e in rel_r]}")
             + f" (tol {BANDED_REL}); two launches bit-equal {stable}")
@@ -1082,7 +1119,7 @@ def check_banded_kernels(mods: dict, resid, pure, graph, gen, dev) -> list[dict]
     kt = resid.group_rows
     rows_f, rows_r = ((torch.nonzero(rg > 0).flatten()[:, None] * kt
                        + torch.arange(kt, device=rg.device)).flatten() for rg in (rg_f, rg_r))
-    log(f"residual groups: {rows_f.numel() // kt} of {rg_f.numel()} forward, "
+    log(f"{label}residual groups: {rows_f.numel() // kt} of {rg_f.numel()} forward, "
         f"{rows_r.numel() // kt} reverse ({kt} rows each)")
     inputs = {}
     for dt in (torch.bfloat16, torch.float32):
@@ -1187,7 +1224,7 @@ def check_banded_kernels(mods: dict, resid, pure, graph, gen, dev) -> list[dict]
         plain_ms, _ = timed(plain, iters=3, warmup=1)
         library_ms, _ = timed(library, iters=10)
         bound_ms, bound_by = bound(*cost, PEAK_BF16_FLOP_S)
-        log(f"{name} timing ({shape}): kernel {ms:.4f} ms (host issue {host:.4f}), plain "
+        log(f"{label}{name} timing ({shape}): kernel {ms:.4f} ms (host issue {host:.4f}), plain "
             f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}: {cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.1f} GFLOP)")
         entries.append(dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1763,16 +1800,407 @@ def check_reorder(mods: dict, graph) -> None:
     if perm is None or span1 > 16:
         raise AssertionError("the reorder did not band the shuffled graph")
 
+# ---------------- the v1 GRU, GruSage's other paths, the megakernel, cmap
+
+
+def check_gru_scan(mods: dict, gen, dev, smi: str) -> list[dict]:
+    """The v1 GRU scan (gru_forward_v1: the input projection by torch.matmul,
+    then gru_scan_fwd / gru_scan_bwd through GruScanFn) at the flagship
+    training batch's rows, T=100, D=6, H=96, at 1 and 2 layers: forward,
+    then backward of sum(out * coef) + sum(h_last^2) through the kernels
+    (launch counts set to 0 just before, read just after), against the f32
+    scan (ops/gru.gru_forward) under autograd: outputs at SCAN_TOL, the
+    gradients of x and every parameter at SCAN_GRAD_TOL[layers] of max|g| +
+    1e-6; a second run bit-equal. Then each kernel against its plain version
+    and times of kernel, plain version and cuDNN's f32 GRU (TF32 off)."""
+    from sldm_gnn_tpu_torch.ops.gru import GRUParams, gru_forward
+
+    gru_cuda = mods["gru_cuda"]
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the v1 scan's xproj would not be f32")
+    n = flagship_rows(np.random.default_rng(SEED))
+    h = HIDDEN
+    x = torch.randn((n, FRAMES, FEATURES), generator=gen).to(dev)
+    coef = torch.randn((n, FRAMES, h), generator=gen).to(dev)
+    errs = {"gru_scan_fwd": 0.0, "gru_scan_bwd": 0.0}
+    counts = None
+    for layers in (1, 2):
+        w0 = gru_weights(gen, FEATURES, h, dev)  # (w_ih, b_ih, w_hh, b_hh)
+        rest = [gru_weights(gen, h, h, dev) for _ in range(layers - 1)]
+
+        def stacked(i, shape):
+            return torch.stack([r[i] for r in rest]) if rest else \
+                torch.zeros((0,) + shape, device=dev)
+
+        leaves = [w0[0], w0[2], w0[1], w0[3], stacked(0, (h, 3 * h)), stacked(2, (h, 3 * h)),
+                  stacked(1, (3 * h,)), stacked(3, (3 * h,))]
+
+        def run(forward):
+            ps = [t.detach().clone().requires_grad_(t.numel() > 0) for t in leaves]
+            xg = x.detach().clone().requires_grad_()
+            out, h_last = forward(GRUParams(*ps), xg)
+            loss = (out * coef).sum() + (h_last ** 2).sum()
+            live = [p for p in ps if p.requires_grad]
+            return out.detach(), torch.autograd.grad(loss, [xg, *live])
+
+        set_counts_to_zero(mods)
+        out_k, g_k = run(gru_cuda.gru_forward_v1)
+        torch.cuda.synchronize()
+        c = read_counts(mods)
+        want = {"gru_scan_fwd": layers, "gru_scan_bwd": layers}
+        if any(c[k] != v for k, v in want.items()) or sum(c.values()) != sum(want.values()):
+            raise AssertionError(f"v1 GRU {layers} layer(s): launches {c}, want {want}")
+        if layers == 1:
+            counts = c
+        out_a, g_a = run(gru_cuda.gru_forward_v1)
+        out_p, g_p = run(gru_forward)
+        torch.cuda.synchronize()
+        stable = torch.equal(out_k, out_a) and all(torch.equal(a, b) for a, b in zip(g_k, g_a))
+        e_out = (out_k - out_p).abs().max().item()
+        ok_out = bool(((out_k - out_p).abs() <= SCAN_TOL + SCAN_TOL * out_p.abs()).all())
+        tol = SCAN_GRAD_TOL[layers]
+        worst = 0.0
+        for a, b in zip(g_k, g_p):
+            scale = b.abs().max().item() + 1e-6
+            excess = ((a - b).abs() - tol * b.abs()).max().item() / scale
+            worst = max(worst, excess)
+        log(f"v1 GRU N={n} T={FRAMES} D={FEATURES} H={h}, {layers} layer(s): outputs vs the f32 "
+            f"scan max_abs {e_out:.3e} (rtol/atol {SCAN_TOL}: {ok_out}); {len(g_k)} gradients "
+            f"within rtol {tol} + {tol} * (max|g| + 1e-6): largest excess {worst:.3e} of that "
+            f"scale; launches {c}; a second run bit-equal {stable}")
+        if not ok_out or worst > tol or not stable or not torch.isfinite(out_k).all():
+            raise AssertionError(f"v1 GRU at {layers} layer(s) disagrees with the f32 scan")
+        del out_k, g_k, out_a, g_a, out_p, g_p
+    torch.cuda.empty_cache()
+
+    # each kernel against its plain version, at the first layer's shapes
+    w_ih, b_ih, w_hh, b_hh = gru_weights(gen, FEATURES, h, dev)
+    xproj = (torch.matmul(x, w_ih) + b_ih).transpose(0, 1)  # [T, N, 3H] view
+    g = coef.transpose(0, 1)
+    hs = gru_cuda.gru_scan_fwd(xproj, w_hh, b_hh)
+    hs_p = gru_cuda.gru_scan_fwd_plain(xproj, w_hh, b_hh)
+    d_k = gru_cuda.gru_scan_bwd(xproj, hs, w_hh, b_hh, g)
+    d_p = gru_cuda.gru_scan_bwd_plain(xproj, hs, w_hh, b_hh, g)
+    torch.cuda.synchronize()
+    errs["gru_scan_fwd"] = (hs - hs_p).abs().max().item()
+    errs["gru_scan_bwd"] = max((a - b).abs().max().item() for a, b in zip(d_k, d_p))
+    rel = [((a - b).abs().max() / (b.abs().max() + 1e-6)).item() for a, b in zip(d_k, d_p)]
+    log(f"gru_scan_fwd vs its plain version: max_abs {errs['gru_scan_fwd']:.3e}; gru_scan_bwd "
+        f"(dxproj, dW_hh, db_hh) max|err| / (max|plain| + 1e-6) {['%.2e' % r for r in rel]}")
+    if errs["gru_scan_fwd"] > SCAN_TOL or max(rel) > SCAN_GRAD_TOL[1]:
+        raise AssertionError("a v1 GRU kernel disagrees with its plain version")
+    del hs_p, d_k, d_p
+
+    # the widest H the kernels take (shared memory, registers): SCAN_WIDEST_H
+    # runs, one more raises a ValueError that names it
+    import ctypes
+
+    from sldm_gnn_tpu_torch.ops import _build
+
+    lib = _build.load()
+    widest = gru_cuda.SCAN_WIDEST_H
+
+    def fwd_takes(hh):
+        try:
+            gru_cuda.gru_scan_fwd(torch.zeros((1, 1, 3 * hh), device=dev),
+                                  torch.zeros((hh, 3 * hh), device=dev),
+                                  torch.zeros(3 * hh, device=dev))
+        except ValueError as err:
+            if "than a block may use" not in str(err):
+                raise
+            return False
+        return True
+
+    def bwd_takes(hh):
+        return lib.gru_scan_bwd_grid(1, hh, ctypes.byref(ctypes.c_int(0))) == 0
+
+    probe = {"forward": (fwd_takes(widest["forward"]), fwd_takes(widest["forward"] + 1)),
+             "backward": (bwd_takes(widest["backward"]), bwd_takes(widest["backward"] + 1))}
+    log(f"v1 GRU widest H on this card (takes H, takes H + 1): {probe} at H = {widest}")
+    if any(p != (True, False) for p in probe.values()):
+        raise AssertionError("the v1 scan's widest H differs from SCAN_WIDEST_H")
+
+    fwd_ms, fwd_host = timed(lambda: gru_cuda.gru_scan_fwd(xproj, w_hh, b_hh), iters=10)
+    bwd_ms, bwd_host = timed(lambda: gru_cuda.gru_scan_bwd(xproj, hs, w_hh, b_hh, g), iters=3)
+    fwd_plain, _ = timed(lambda: gru_cuda.gru_scan_fwd_plain(xproj, w_hh, b_hh), iters=2,
+                         warmup=1)
+    bwd_plain, _ = timed(lambda: gru_cuda.gru_scan_bwd_plain(xproj, hs, w_hh, b_hh, g),
+                         iters=2, warmup=1)
+    # yardstick: cuDNN's f32 GRU with the same weights, TF32 off; it
+    # computes the input projection too, which the kernels take as given
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lib = torch.nn.GRU(FEATURES, h, batch_first=True).to(dev)
+        with torch.no_grad():
+            lib.weight_ih_l0.copy_(w_ih.T)
+            lib.weight_hh_l0.copy_(w_hh.T)
+            lib.bias_ih_l0.copy_(b_ih)
+            lib.bias_hh_l0.copy_(b_hh)
+        params = list(lib.parameters())
+        lib_fwd, _ = timed(lambda: lib(x), iters=10)
+
+        def lib_fwd_bwd():
+            out, _ = lib(x)
+            torch.autograd.grad(out, params, coef)
+
+        lib_bwd = timed(lib_fwd_bwd, iters=10)[0] - lib_fwd
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    rows, H3 = n * FRAMES, 3 * h
+    io = rows * H3 * 4 + rows * h * 4  # xproj and hs (or g)
+    fwd_bound = bound(io + (H3 * h + H3) * 4, 2.0 * rows * H3 * h, PEAK_F32_FLOP_S)
+    bwd_bound = bound(2 * io + rows * h * 4 + (H3 * h + H3) * 8, 6.0 * rows * H3 * h,
+                      PEAK_F32_FLOP_S)
+    for name, ms, host, plain_ms, lib_ms, bnd in (
+            ("gru_scan_fwd", fwd_ms, fwd_host, fwd_plain, lib_fwd, fwd_bound),
+            ("gru_scan_bwd", bwd_ms, bwd_host, bwd_plain, lib_bwd, bwd_bound)):
+        log(f"{name} timing N={n} T={FRAMES} H={h}: kernel {ms:.4f} ms (host issue {host:.4f}), "
+            f"plain {plain_ms:.4f} ms, cuDNN f32 GRU {'forward' if name.endswith('fwd') else 'backward'} "
+            f"(with the input projection) {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), on {smi}")
+    del xproj, hs, g, x, coef
+    torch.cuda.empty_cache()
+    common = dict(route="cuda", path="v1 GRU (gru_forward_v1, 1 layer)",
+                  source="sldm_gnn_tpu_torch/csrc/gru_scan.cu")
+    return [
+        dict(name="gru_scan_fwd", replaces="sldm_gnn_tpu/ops/gru_pallas.py:125",
+             shape=f"N={n} T={FRAMES} H={h} xproj f32", launches=counts["gru_scan_fwd"],
+             max_abs_err=errs["gru_scan_fwd"], ms=fwd_ms, plain_ms=fwd_plain,
+             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=lib_fwd,
+             library="cuDNN nn.GRU f32 forward, input projection included", **common),
+        dict(name="gru_scan_bwd", replaces="sldm_gnn_tpu/ops/gru_pallas.py:147",
+             shape=f"N={n} T={FRAMES} H={h} per-frame cotangent", launches=counts["gru_scan_bwd"],
+             max_abs_err=errs["gru_scan_bwd"], ms=bwd_ms, plain_ms=bwd_plain,
+             bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=lib_bwd,
+             library="cuDNN nn.GRU f32 backward, input projection included", **common),
+    ]
+
+
+def check_spmm_mk(mods: dict, graph, gen, dev, smi: str) -> list[dict]:
+    """The megakernel SpMM on bench.py's graph with mean weights
+    (block_edges at tile 128 and 256-slot chunks, then
+    to_megakernel_layout): both modes through the public op (counts set to 0
+    just before, read just after), against their plain versions
+    (AGG_F32_REL of max|out|) and the f32 naive weighted sum (f32 mode: the
+    JAX test's 1e-4 / 1e-3; fast mode, whose x and A are rounded to bf16:
+    BANDED_REL of max|out|), two launches bit-equal; times of kernel, plain
+    version and cuSPARSE's f32 CSR product."""
+    tmk, tcsr = mods["spmm_mk"], mods["csr"]
+    src, dst = graph
+    n_pad = tcsr.pad_nodes(BENCH_NODES)
+    w = tcsr.mean_weights(dst, BENCH_NODES)
+    t0 = time.perf_counter()
+    mk = tmk.to_megakernel_layout(
+        tcsr.block_edges(src, dst, n_pad, weight=w, tile=BANDED_TILE, edge_chunk=MK_CHUNK), n_pad)
+    log(f"megakernel layout in {time.perf_counter() - t0:.3f} s on the host: n_pad {n_pad}, "
+        f"{mk.num_chunks} chunks of {mk.edge_chunk} slots, tile {mk.tile}")
+    mk = mk.to(dev)
+    x = torch.randn((n_pad, BENCH_DIM), generator=gen).to(dev)
+
+    set_counts_to_zero(mods)
+    got = {fast: tmk.spmm_mk(x, mk, n_pad, fast=fast) for fast in (True, False)}
+    torch.cuda.synchronize()
+    counts = read_counts(mods)
+    if counts["spmm_mk"] != 2 or sum(counts.values()) != 2:
+        raise AssertionError(f"megakernel path: launches {counts}, want spmm_mk 2")
+    ts, td = (torch.from_numpy(a).to(dev) for a in graph)
+    naive = mods["spmm"].spmm_xla(x, ts, td, torch.from_numpy(w).to(dev), n_pad)
+    errs = {}
+    for fast in (True, False):
+        again = tmk.spmm_mk(x, mk, n_pad, fast=fast)
+        plain = tmk.spmm_mk_plain(x, mk, n_pad, fast=fast)
+        torch.cuda.synchronize()
+        err = (got[fast] - plain).abs().max().item()
+        rel = err / plain.abs().max().item()
+        stable = torch.equal(got[fast], again)
+        e_naive = (got[fast] - naive).abs().max().item()
+        if fast:  # bf16 x and bf16 A: two roundings of 2^-9 a term
+            close = e_naive / naive.abs().max().item() <= BANDED_REL
+            what = f"within {BANDED_REL} of max|out|"
+        else:
+            close = torch.allclose(got[fast], naive, rtol=1e-4, atol=1e-3)
+            what = "within rtol 1e-4 / atol 1e-3"
+        log(f"spmm_mk fast={fast}: vs plain {rel:.3e} of max|out| (tol {AGG_F32_REL}); vs the f32 "
+            f"naive sum {what}: {close} (max_abs {e_naive:.3e}); two launches bit-equal {stable}")
+        if rel > AGG_F32_REL or not close or not stable:
+            raise AssertionError(f"spmm_mk (fast={fast}) disagrees")
+        errs[fast] = err
+    del again, plain, naive
+    csr = mean_csr(src, dst, n_pad, dev)
+    used = int(mk.chunk_ptr[-1])
+    nbytes = (2 * n_pad * BENCH_DIM * 4 + used * mk.edge_chunk * 12 + used * 4
+              + mk.chunk_ptr.numel() * 4)
+    live = int((mk.weight != 0).sum())
+    bnd = bound(nbytes, 2.0 * live * BENCH_DIM, PEAK_F32_FLOP_S)
+    lib_ms, _ = timed(lambda: torch.sparse.mm(csr, x), iters=10)
+    entries = []
+    for fast in (True, False):
+        ms, host = timed(lambda: tmk.spmm_mk(x, mk, n_pad, fast=fast), iters=10)
+        plain_ms, _ = timed(lambda: tmk.spmm_mk_plain(x, mk, n_pad, fast=fast), iters=3, warmup=1)
+        mode = "fast (bf16 A and x)" if fast else "f32"
+        log(f"spmm_mk timing ({mode}, N={n_pad} D={BENCH_DIM}): kernel {ms:.4f} ms (host issue "
+            f"{host:.4f}), plain {plain_ms:.4f} ms, cuSPARSE CSR f32 {lib_ms:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}: {nbytes / 1e6:.1f} MB), on {smi}")
+        entries.append(dict(name="spmm_mk", route="cuda", source="sldm_gnn_tpu_torch/csrc/spmm_mk.cu",
+                            replaces="sldm_gnn_tpu/ops/spmm_mk.py:205", mode=mode,
+                            shape=f"N={n_pad} D={BENCH_DIM} megakernel layout ({mk.num_chunks} "
+                                  f"chunks of {mk.edge_chunk}), f32 x",
+                            path="megakernel op (spmm_mk)", launches=1, max_abs_err=errs[fast],
+                            ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                            library_ms=lib_ms))
+    del x, mk, csr
+    torch.cuda.empty_cache()
+    return entries
+
+
+def scattered_graph(n: int, deg: int, tile: int, seed: int = 0):
+    """tests/test_spmm_cmap.py's low-degree generator at scale: every
+    destination block draws its sources from 4 preferred source tiles
+    scattered over +-8 tiles (local, but not a band)."""
+    rng = np.random.default_rng(seed)
+    dst = np.repeat(np.arange(n, dtype=np.int64), deg)
+    nb = n // tile
+    prefs = np.clip(np.arange(nb)[:, None] + rng.integers(-8, 9, (nb, 4)), 0, nb - 1)
+    pick = prefs[dst // tile, rng.integers(0, 4, len(dst))]
+    src = np.clip(pick * tile + rng.integers(0, tile, len(dst)), 0, n - 1)
+    return src.astype(np.int64), dst
+
+
+def cmap_layout(mods: dict, dev):
+    """The scattered graph as the cmap layout (and, for comparison, as the
+    contiguous banded-residual layout): host seconds, c and window, A bytes,
+    residual; holds that cmap differs from the band's off + s in most
+    blocks (else the card run would not exercise cmap)."""
+    src, dst = scattered_graph(CMAP_NODES, BENCH_DEG, BANDED_TILE)
+    t0 = time.perf_counter()
+    lay, n_pad = mods["spmm_cmap"].prepare_cmap_residual_mean_aggregate(
+        src, dst, CMAP_NODES, tile=BANDED_TILE, k=BANDED_K, count_cap=COUNT_CAP)
+    t1 = time.perf_counter()
+    f, r = lay.banded_fwd, lay.banded_rev
+    band = f.off.long()[:, None] + torch.arange(f.s_span)[None, :]
+    differs = (f.cmap.long().reshape(-1, f.s_span) != band).any(1).float().mean().item()
+    log(f"cmap layout of {CMAP_NODES} nodes, {len(src)} edges (scattered, deg {BENCH_DEG}): "
+        f"{t1 - t0:.3f} s on the host, n_pad {n_pad}, c {f.s_span}/{r.s_span}, window "
+        f"{f.wsz}/{r.wsz} tiles, A {f.a.numel() / 1e6:.1f}+{r.a.numel() / 1e6:.1f} MB, residual "
+        f"{lay.resid_frac:.5f} ({len(lay.r_src)} edges); cmap differs from off + s in "
+        f"{differs:.4f} of the {f.num_dst_blocks} forward blocks")
+    if differs < 0.5:
+        raise AssertionError("the cmap layout is nearly a band: the check would prove nothing")
+    t0 = time.perf_counter()
+    cont, _ = mods["banded_residual"].prepare_banded_residual_mean_aggregate(
+        src, dst, CMAP_NODES, tile=BANDED_TILE, k=BANDED_K, count_cap=COUNT_CAP)
+    cf, cr = cont.banded_fwd, cont.banded_rev
+    log(f"the contiguous banded-residual layout of the same graph: {time.perf_counter() - t0:.3f} "
+        f"s, span {cf.s_span}/{cr.s_span}, A {cf.a.numel() / 1e6:.1f}+{cr.a.numel() / 1e6:.1f} "
+        f"MB, residual {cont.resid_frac:.5f} ({len(cont.r_src)} edges)")
+    del cont
+    return lay.to(dev), n_pad, (src, dst)
+
+
+def check_grusage_rest(mods: dict, batch, md, graphs, dev, smi: str) -> dict:
+    """GruSage at the flagship width on the 2048-graph batch with the live
+    map, gru_impl 'pallas_sg': (a) the aligned batch (pad_and_batch_aligned,
+    vmax 11) with MapData.adj: logits equal the flat batch's at DENSE_TOL,
+    then TRAIN_STEPS steps; (b) compute_dtype 'bfloat16' on the same
+    weights: logits within BF16_RTOL / BF16_ATOL of f32, then TRAIN_STEPS
+    steps; (c) sage_type 'attention': TRAIN_STEPS steps, the loss finite and
+    falling. Every run launches the store-gates GRU pair and the KNN kernel
+    once a step. Returns the counts of the aligned run."""
+    from sldm_gnn_tpu_torch.graph.batching import pad_and_batch_aligned
+    from sldm_gnn_tpu_torch.models.grusage import GruSage
+    from sldm_gnn_tpu_torch.models.map_modules import dense_map_adj
+    from sldm_gnn_tpu_torch.train.loop import build_step_fns, make_optimizer
+
+    t0 = time.perf_counter()
+    aligned = pad_and_batch_aligned(graphs, ALIGNED_VMAX, num_frames=FRAMES,
+                                    num_labels=LABELS).to(dev)
+    md_dense = dataclasses.replace(md, adj=torch.from_numpy(dense_map_adj(md)).to(dev))
+    log(f"aligned batch (vmax {ALIGNED_VMAX}, {aligned.node_capacity} rows) and the dense map "
+        f"adjacency [1, {SEGMENTS}, {SEGMENTS}] in {time.perf_counter() - t0:.3f} s on the host")
+    y = batch.y[batch.graph_mask]
+    pos_weight = float((y == 0).sum() / (y == 1).sum().clamp_min(1))
+
+    def model_for(**kw):
+        cfg = dataclasses.replace(flagship_config("pallas_sg", 0.25), **kw)
+        m = GruSage(cfg, map_feat_dim=MAP_FEATS)
+        m.reset_parameters(torch.Generator().manual_seed(SEED))
+        return m.to(dev)
+
+    def train(label, model, b, m_data, must_fall):
+        fns = build_step_fns(model, make_optimizer(1e-3, 5e-5), map_data=m_data,
+                             pos_weight=pos_weight)
+        card_gen = torch.Generator(device=dev).manual_seed(SEED)
+        state = fns.init(card_gen)
+        set_counts_to_zero(mods)
+        times, losses = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, m = fns.train_step(state, b, card_gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"])
+        counts = read_counts(mods)
+        losses = torch.stack(losses).float().cpu().numpy()
+        p50 = float(np.median(times))
+        log(f"GruSage {label}: {TRAIN_STEPS} steps (dropout 0.25), losses {losses[0]:.5f} -> "
+            f"{losses[-1]:.5f}, p50 {p50:.3f} ms/step ({PACKS / p50 * 1e3:.1f} graphs/s), "
+            f"launches {counts}, on {smi}")
+        want = {"gru_fwd_sg": TRAIN_STEPS, "gru_bwd_sg": TRAIN_STEPS, "knn_topk": TRAIN_STEPS}
+        if any(counts[k] != v for k, v in want.items()) or \
+                sum(counts.values()) != sum(want.values()):
+            raise AssertionError(f"GruSage {label}: launches {counts}, want {want}")
+        if not np.isfinite(losses).all() or (must_fall and not losses[-1] < losses[0]):
+            raise AssertionError(f"GruSage {label}: losses {losses}")
+        return counts
+
+    # (a) aligned + dense map against flat, then training
+    m32 = model_for().eval()
+    with torch.no_grad():
+        lf = m32(batch, map_data=md)
+        ld = m32(aligned, map_data=md_dense)
+    g = batch.graph_mask
+    err = (ld[g] - lf[g]).abs().max().item()
+    ok = bool(((ld[g] - lf[g]).abs() <= DENSE_TOL + DENSE_TOL * lf[g].abs()).all())
+    log(f"GruSage aligned batch + MapData.adj vs the flat batch (eval): logits max_abs {err:.3e} "
+        f"(rtol/atol {DENSE_TOL}: {ok})")
+    if not ok:
+        raise AssertionError("the aligned GruSage disagrees with the flat one")
+    counts = train("aligned + dense map", m32.train(), aligned, md_dense, False)
+
+    # (b) bf16 compute on the same weights
+    m16 = model_for(compute_dtype="bfloat16")
+    m16.load_state_dict(model_for().state_dict())
+    m32 = model_for().eval()
+    m16.eval()
+    with torch.no_grad():
+        l32, l16 = m32(batch, map_data=md), m16(batch, map_data=md)
+    err = (l16[g] - l32[g]).abs().max().item()
+    ok = l16.dtype == torch.float32 and \
+        bool(((l16[g] - l32[g]).abs() <= BF16_ATOL + BF16_RTOL * l32[g].abs()).all())
+    log(f"GruSage compute_dtype bfloat16 vs f32 on the same weights (eval): logits {l16.dtype}, "
+        f"max_abs {err:.3e} (rtol {BF16_RTOL} / atol {BF16_ATOL}: {ok})")
+    if not ok:
+        raise AssertionError("the bf16 GruSage is off the f32 one")
+    train("compute_dtype bfloat16", m16.train(), batch, md, False)
+    del m16, m32
+
+    # (c) edge attention
+    train("sage_type attention", model_for(sage_type="attention"), batch, md, True)
+    del aligned, md_dense
+    torch.cuda.empty_cache()
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
               file=sys.stderr)
         return 2
-    from sldm_gnn_tpu_torch.graph import reorder
+    from sldm_gnn_tpu_torch.graph import csr, reorder
     from sldm_gnn_tpu_torch.ops import _build, banded_residual, gru_cuda, quant, sage_fused, spmm
     from sldm_gnn_tpu_torch.ops import knn as knn_ops
-    from sldm_gnn_tpu_torch.ops import sddmm, spmm_banded, spmm_dense, spmm_gather, spmm_hybrid
+    from sldm_gnn_tpu_torch.ops import sddmm, spmm_banded, spmm_cmap, spmm_dense, spmm_gather
+    from sldm_gnn_tpu_torch.ops import spmm_hybrid, spmm_mk
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1801,15 +2229,18 @@ def main() -> int:
     mods = {"gru_cuda": gru_cuda, "knn_ops": knn_ops, "spmm_banded": spmm_banded,
             "sage_fused": sage_fused, "banded_residual": banded_residual, "spmm": spmm,
             "spmm_dense": spmm_dense, "spmm_gather": spmm_gather, "spmm_hybrid": spmm_hybrid,
-            "quant": quant, "sddmm": sddmm, "reorder": reorder}
+            "quant": quant, "sddmm": sddmm, "reorder": reorder, "spmm_mk": spmm_mk,
+            "spmm_cmap": spmm_cmap, "csr": csr}
+    scan_entries = check_gru_scan(mods, gen, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         launches = check_serving(gru_cuda, knn_ops, Path(tmp), dev)
         for e in entries:
             e["launches"] = launches[e["name"]]
-        batch, md = synth_training_data(dev)
+        batch, md, graphs = synth_training_data(dev, with_graphs=True)
         model_sg, counts_sg = check_training(mods, "pallas_sg", batch, md, dev, smi)
         _, counts_v2 = check_training(mods, "pallas", batch, md, dev, smi)
-        del batch
+        check_grusage_rest(mods, batch, md, graphs, dev, smi)
+        del batch, graphs
         torch.cuda.empty_cache()
         check_train_to_serve(mods, model_sg, md, Path(tmp), dev)
     for e in train_entries:
@@ -1869,6 +2300,39 @@ def main() -> int:
     torch.cuda.empty_cache()
     entries += check_int8_sddmm(mods, lays, graph, gen, dev)
     check_reorder(mods, graph)
+    del lays
+    torch.cuda.empty_cache()
+    entries += scan_entries
+    entries += check_spmm_mk(mods, graph, gen, dev, smi)
+
+    # the cmap tier on the scattered graph: the four banded kernels, bench.py's
+    # fused step and the classifier (fused_ln and unfused) on its layout
+    clay, c_pad, cgraph = cmap_layout(mods, dev)
+    cmap_entries = check_banded_kernels(mods, clay, (clay.banded_fwd, clay.banded_rev), cgraph,
+                                        gen, dev, label="cmap: ")
+    torch.cuda.empty_cache()
+    counts_cbench = check_bench_step(
+        mods, "cmap+fused",
+        lambda h, wa, wb: banded_residual.banded_residual_sage_apply(h, wa, wb, None, clay,
+                                                                     True, 0.0),
+        c_pad, {"banded_sage_fwd": 2, "banded_sage_bwd": 2}, BANDED_KERNEL_KEYS,
+        len(cgraph[0]), dev, smi)
+    counts_cln, _ = check_classifier(mods, (clay, None), c_pad, dict(fused=True, fused_ln=True),
+                                     "fused_ln, cmap", {"banded_sage_fwd": 2,
+                                                        "banded_sage_ln_bwd": 2}, dev)
+    counts_cun, _ = check_classifier(mods, (clay.banded_fwd, clay.banded_rev), c_pad, {},
+                                     "unfused, cmap banded part", {"spmm_banded": 3}, dev)
+    launch_of = {"spmm_banded": ("classifier unfused, cmap", counts_cun),
+                 "banded_sage_fwd": ("bench step cmap", counts_cbench),
+                 "banded_sage_bwd": ("bench step cmap", counts_cbench),
+                 "banded_sage_ln_bwd": ("classifier fused_ln, cmap", counts_cln)}
+    for e in cmap_entries:
+        e["path"], counts = launch_of[e["name"]]
+        e["launches"] = counts[e["name"]]
+        e["layout"] = "cmap"
+        e["shape"] = e["shape"].replace("banded-residual", "cmap-residual").replace(
+            "pure banded", "cmap banded part") + f", c {clay.banded_fwd.s_span}"
+    entries += cmap_entries
     log(f"total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -1,5 +1,5 @@
 // The block-level product shared by the banded kernels (spmm_banded.cu,
-// sage_fused_fwd.cu, sage_fused_bwd.cu).
+// sage_fused_fwd.cu, sage_fused_bwd.cu), and their `cmap` slot tiles.
 //
 // One block of 256 threads computes an output tile of at most 128 x 128
 // f32 sums, acc = A @ B, walking the depth K in chunks of 32: every thread
@@ -122,11 +122,31 @@ inline int launch_reduce(const float* partial, int parts, int n, float* out, cud
   return cudaGetLastError();
 }
 
+// Source tiles of a `cmap` layout (ops/spmm_cmap.py): slot s of
+// destination block b reads the window tile woff[b / k] + cmap[b * s_span +
+// s] (clamped to [0, nb), as the XLA twin clamps) instead of bo[b] + s.
+// The block stages its s_span tiles in shared memory once; the caller
+// synchronises before reading them.
+constexpr int kMaxCmapSlots = 64;
+
+__device__ __forceinline__ void load_cmap_tiles(int* stile, const int* __restrict__ cmap,
+                                                const int* __restrict__ woff, int b, int k,
+                                                int s_span, int nb) {
+  for (int s = threadIdx.x; s < s_span; s += blockDim.x)
+    stile[s] = min(max(woff[b / k] + cmap[static_cast<size_t>(b) * s_span + s], 0), nb - 1);
+}
+
 // Shapes every banded kernel takes: tiles of 32..128 rows in steps of 32
 // (whole depth chunks), feature widths 1..128 (one output tile).
+// With a cmap, at most kMaxCmapSlots slots and woff given.
 inline bool banded_shape_ok(int nb, int s_span, int tile, int width) {
   return nb > 0 && s_span > 0 && tile >= 32 && tile <= kTileMax && tile % kKc == 0 &&
          width > 0 && width <= kTileMax;
+}
+
+inline bool cmap_ok(const void* cmap, const void* woff, int s_span, int k, int nb) {
+  return cmap == nullptr ||
+         (woff != nullptr && s_span <= kMaxCmapSlots && k > 0 && nb % k == 0);
 }
 
 // Opt in to `bytes` of dynamic shared memory for `kernel`.

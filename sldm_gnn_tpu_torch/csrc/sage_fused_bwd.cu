@@ -3,8 +3,11 @@
 // Replaces the TPU kernels `_bwd_kernel` (sldm_gnn_tpu/ops/sage_fused.py:302,
 // launched by `banded_sage_bwd_pallas` :439, pallas_call :554) and
 // `_bwd_ln_kernel` (:652, `banded_sage_ln_bwd_pallas` :800, pallas_call
-// :905), with their `resid` option; `cmap` is not ported. Both share one
-// reverse kernel, per destination block b of the reverse layout:
+// :905), with their `resid` and `cmap` options (with `cmap`, slot s of
+// block b reads the window tile woff[b / k] + cmap[b * s_span + s] instead
+// of bo[b] + s, as sage_fused.py:403 and :759 do; the block stages its
+// slots' tiles in shared memory). Both share one reverse kernel, per
+// destination block b of the reverse layout:
 //   t[b]  = sum_s (A_rev[b, s] scaled by column) @ R[bo[b] + s]  (+ residual)
 //   dx[b] = t[b] @ Wl^T + O[b] @ Wr^T
 //   dWl  += x[b]^T t[b],   dWr += x[b]^T O[b]      (when x is given)
@@ -52,6 +55,7 @@ size_t bwd_smem_bytes(int D, int H, bool with_dw) {
 
 __global__ void __launch_bounds__(kThreads, 1)
     sage_bwd_kernel(const void* __restrict__ a, int a_f32, const int* __restrict__ bo,
+                    const int* __restrict__ cmap, const int* __restrict__ woff,
                     const float* __restrict__ cs, const float* __restrict__ rstd, int nb,
                     int s_span, int tile, int k_grp, const void* __restrict__ R, int r_bf16,
                     const void* __restrict__ O, int o_bf16, int H,
@@ -60,6 +64,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                     const void* __restrict__ x, int x_bf16, void* __restrict__ dx, int dx_bf16,
                     void* __restrict__ t_out, int t_bf16, float* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int stile[kMaxCmapSlots];
   BwdSmem& sm = *reinterpret_cast<BwdSmem*>(smem);
   float* dwl = sm.dw;
   float* dwr = sm.dw + D * H;
@@ -73,11 +78,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int base = bo[b];
     const size_t a0 = static_cast<size_t>(b) * s_span * tt;
     const size_t row0 = static_cast<size_t>(b) * tile;
+    if (cmap != nullptr) {  // the previous block's reads of stile are behind a barrier
+      load_cmap_tiles(stile, cmap, woff, b, k_grp, s_span, nb);
+      __syncthreads();
+    }
+    auto src_tile = [&](int s) { return cmap != nullptr ? stile[s] : base + s; };
 
     // 1. t = (A with scaled columns) @ R-slots
     auto la = [&](int m, int k) {
       const int s = k / tile, j = k - s * tile;
-      const size_t src = static_cast<size_t>(base + s) * tile + j;
+      const size_t src = static_cast<size_t>(src_tile(s)) * tile + j;
       const float av = load_a(a, a0 + s * tt + static_cast<size_t>(m) * tile + j, a_f32);
       if (rstd != nullptr)
         return bf16_round(av * (cs != nullptr ? rstd[src] * cs[src] : rstd[src]));
@@ -86,7 +96,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     };
     auto lb = [&](int k, int n) {
       const int s = k / tile, j = k - s * tile;
-      return bf16_round(load_f(R, (static_cast<size_t>(base + s) * tile + j) * H + n, r_bf16));
+      return bf16_round(load_f(R, (static_cast<size_t>(src_tile(s)) * tile + j) * H + n, r_bf16));
     };
     zero_acc(acc);
     block_gemm<false>(acc, tile, H, s_span * tile, la, lb, sm.st);
@@ -264,12 +274,13 @@ extern "C" int sage_bwd_grid(int nb, int D, int H, int with_dw, int* blocks) {
 }
 
 // The reverse kernel: a [nb, s_span, tile, tile] int8 (or f32), bo [nb]
-// int32; cs [nb*tile] f32 or NULL (1/deg); rstd [nb*tile] f32 or NULL (LN
+// int32; cmap [nb * s_span] and woff [nb/k_grp] int32 or NULL; cs [nb*tile] f32 or NULL (1/deg); rstd [nb*tile] f32 or NULL (LN
 // mode); R, O [nb*tile, H] bf16 or f32; wlt, wrt [H, D] bf16; t_c
 // [m, k_grp*tile, H] and rg [nb/k_grp] or NULL; x [nb*tile, D] or NULL;
 // dx [nb*tile, D]; t_out [nb*tile, H] or NULL; with x, partial [blocks, 2,
 // D, H] f32 scratch and dw [2, D, H] f32 = dWl | dWr.
-extern "C" int sage_bwd_launch(const void* a, int a_f32, const void* bo, const void* cs,
+extern "C" int sage_bwd_launch(const void* a, int a_f32, const void* bo, const void* cmap,
+                               const void* woff, const void* cs,
                                const void* rstd, int nb, int s_span, int tile, int k_grp,
                                const void* R, int r_bf16, const void* O, int o_bf16, int H,
                                const void* wlt, const void* wrt, int D, const void* t_c,
@@ -278,7 +289,8 @@ extern "C" int sage_bwd_launch(const void* a, int a_f32, const void* bo, const v
                                void* dw, void* stream) {
   if (!banded_shape_ok(nb, s_span, tile, H) || D <= 0 || D > kTileMax || k_grp <= 0 ||
       nb % k_grp != 0 || (rg != nullptr && t_c == nullptr) ||
-      (x != nullptr && (partial == nullptr || dw == nullptr)))
+      (x != nullptr && (partial == nullptr || dw == nullptr)) ||
+      !cmap_ok(cmap, woff, s_span, k_grp, nb))
     return SLDM_ERR_SHAPE;
   int want = 0;
   int code = sage_bwd_grid(nb, D, H, x != nullptr, &want);
@@ -286,7 +298,8 @@ extern "C" int sage_bwd_launch(const void* a, int a_f32, const void* bo, const v
   if (blocks != want) return SLDM_ERR_SHAPE;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   sage_bwd_kernel<<<blocks, kThreads, bwd_smem_bytes(D, H, x != nullptr), s>>>(
-      a, a_f32, static_cast<const int*>(bo), static_cast<const float*>(cs),
+      a, a_f32, static_cast<const int*>(bo), static_cast<const int*>(cmap),
+      static_cast<const int*>(woff), static_cast<const float*>(cs),
       static_cast<const float*>(rstd), nb, s_span, tile, k_grp, R, r_bf16, O, o_bf16, H,
       static_cast<const __nv_bfloat16*>(wlt), static_cast<const __nv_bfloat16*>(wrt), D, t_c,
       tc_bf16, static_cast<const int*>(rg), x, x_bf16, dx, dx_bf16, t_out, t_bf16,

@@ -4,7 +4,10 @@
 //
 // Replaces the TPU kernel `_fused_kernel` (sldm_gnn_tpu/ops/sage_fused.py:49,
 // launched by `banded_sage_fwd_pallas` :147, pallas_call :283), with its
-// `resid` and `ln` options; `ypre` and `cmap` are not ported.
+// `resid`, `ln` and `cmap` options; `ypre` (the halo overlap's
+// pre-activation output) is not ported. With `cmap`, slot s of block b
+// reads the window tile woff[b / k] + cmap[b * s_span + s] instead of
+// bo[b] + s (sage_fused.py:95-101), staged in shared memory first.
 //
 // Design. One block of 256 threads per destination block of `tile` rows:
 // the aggregation runs as one block product over the s_span source tiles
@@ -34,6 +37,7 @@ struct FwdSmem {
 
 __global__ void __launch_bounds__(kThreads, 2)
     sage_fwd_kernel(const void* __restrict__ a, int a_f32, const int* __restrict__ bo,
+                    const int* __restrict__ cmap, const int* __restrict__ woff, int nb,
                     const float* __restrict__ rs, int s_span, int tile, int k_grp,
                     const void* __restrict__ x, int x_bf16, int D, int H,
                     const __nv_bfloat16* __restrict__ wl, const __nv_bfloat16* __restrict__ wr,
@@ -42,9 +46,14 @@ __global__ void __launch_bounds__(kThreads, 2)
                     const void* __restrict__ r_c, int r_bf16, const int* __restrict__ rg,
                     void* __restrict__ out, void* __restrict__ xhat, float* __restrict__ rstd) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int stile[kMaxCmapSlots];
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem);
   const int b = blockIdx.x;
   const int base = bo[b];
+  if (cmap != nullptr) {
+    load_cmap_tiles(stile, cmap, woff, b, k_grp, s_span, nb);
+    __syncthreads();
+  }
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const size_t tt = static_cast<size_t>(tile) * tile;
   const size_t a0 = static_cast<size_t>(b) * s_span * tt;
@@ -57,7 +66,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   };
   auto lb = [&](int k, int n) {
     const int s = k / tile, j = k - s * tile;
-    return bf16_round(load_f(x, (static_cast<size_t>(base + s) * tile + j) * D + n, x_bf16));
+    const int src_tile = cmap != nullptr ? stile[s] : base + s;
+    return bf16_round(load_f(x, (static_cast<size_t>(src_tile) * tile + j) * D + n, x_bf16));
   };
   float acc[8][8];
   zero_acc(acc);
@@ -145,12 +155,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 }  // namespace
 
-// a [nb, s_span, tile, tile] int8 (or f32), bo [nb] int32, rs [nb*tile] f32
-// or NULL; x [nb*tile, D] bf16 or f32; wl, wr [D, H] bf16; bias, gamma, beta
+// a [nb, s_span, tile, tile] int8 (or f32), bo [nb] int32, cmap [nb *
+// s_span] and woff [nb/k_grp] int32 or NULL, rs [nb*tile] f32 or NULL; x [nb*tile, D] bf16 or f32; wl, wr [D, H] bf16; bias, gamma, beta
 // [H] f32 or NULL (gamma: LayerNorm on, and xhat [nb*tile, H] at x's dtype
 // and rstd [nb*tile] f32 are written); r_c [m, k_grp*tile, D] and rg
 // [nb/k_grp] int32 or NULL; out [nb*tile, H] at x's dtype.
-extern "C" int sage_fwd_launch(const void* a, int a_f32, const void* bo, const void* rs, int nb,
+extern "C" int sage_fwd_launch(const void* a, int a_f32, const void* bo, const void* cmap,
+                               const void* woff, const void* rs, int nb,
                                int s_span, int tile, int k_grp, const void* x, int x_bf16, int D,
                                int H, const void* wl, const void* wr, const void* bias,
                                const void* gamma, const void* beta, float eps, int has_act,
@@ -159,12 +170,13 @@ extern "C" int sage_fwd_launch(const void* a, int a_f32, const void* bo, const v
   if (!banded_shape_ok(nb, s_span, tile, D) || H <= 0 || H > kTileMax || k_grp <= 0 ||
       nb % k_grp != 0 || (gamma != nullptr && (beta == nullptr || xhat == nullptr ||
                                                rstd == nullptr)) ||
-      (rg != nullptr && r_c == nullptr))
+      (rg != nullptr && r_c == nullptr) || !cmap_ok(cmap, woff, s_span, k_grp, nb))
     return SLDM_ERR_SHAPE;
   const int code = smem_opt_in(sage_fwd_kernel, sizeof(FwdSmem));
   if (code != 0) return code;
   sage_fwd_kernel<<<nb, kThreads, sizeof(FwdSmem), static_cast<cudaStream_t>(stream)>>>(
-      a, a_f32, static_cast<const int*>(bo), static_cast<const float*>(rs), s_span, tile, k_grp,
+      a, a_f32, static_cast<const int*>(bo), static_cast<const int*>(cmap),
+      static_cast<const int*>(woff), nb, static_cast<const float*>(rs), s_span, tile, k_grp,
       x, x_bf16, D, H, static_cast<const __nv_bfloat16*>(wl),
       static_cast<const __nv_bfloat16*>(wr), static_cast<const float*>(bias),
       static_cast<const float*>(gamma), static_cast<const float*>(beta), eps, has_act, slope,

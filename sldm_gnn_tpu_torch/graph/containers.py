@@ -4,9 +4,8 @@ and a fixed-capacity batch of graphs (:class:`PaddedGraphBatch`, torch).
 Port of ``sldm_gnn_tpu/graph/containers.py``. The padding contract is the
 same: nodes of all graphs are concatenated and zero-padded to ``N`` rows,
 padding nodes carry graph id ``G`` and padding edges carry ``edge_dst ==
-N`` with ``edge_mask`` False, so the segment ops drop them. The dense
-block-diagonal ``adj`` layout (``pad_and_batch_aligned``) is not ported
-yet.
+N`` with ``edge_mask`` False, so the segment ops drop them. A batch from
+``pad_and_batch_aligned`` also carries the dense block-diagonal ``adj``.
 """
 
 from __future__ import annotations
@@ -68,6 +67,11 @@ class PaddedGraphBatch:
     node_graph: torch.Tensor  # [N] int64; padding rows carry G
     y: torch.Tensor  # [G, L]
     graph_mask: torch.Tensor  # [G] bool
+    # the dense block-diagonal layout (pad_and_batch_aligned): graph g's
+    # nodes are rows [g*vmax, (g+1)*vmax) and adj[g, i, j] =
+    # multiplicity(j -> i) / in_deg(i), so SAGE aggregation is a batched
+    # matmul and pooling a masked reshape-reduce. None: the flat layout.
+    adj: torch.Tensor | None = None  # [G, vmax, vmax] float32
 
     @property
     def node_capacity(self) -> int:
@@ -85,6 +89,7 @@ class PaddedGraphBatch:
         """Copy every tensor to ``device`` (non-blocking where the source
         is pinned)."""
         return PaddedGraphBatch(**{
-            f.name: getattr(self, f.name).to(device, non_blocking=True)
+            f.name: None if getattr(self, f.name) is None
+            else getattr(self, f.name).to(device, non_blocking=True)
             for f in dataclasses.fields(self)
         })

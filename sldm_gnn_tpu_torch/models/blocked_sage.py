@@ -28,8 +28,11 @@ Module names follow the JAX param tree (``sage/conv{i}/lin_l``, ``lin_r``,
 ways. ``use_pallas=False`` runs the reference paths; ``use_pallas=True``
 the kernels on CUDA tensors and their plain versions on CPU tensors.
 
-Not ported (``NotImplementedError``): ``wide`` banded layouts and ``cmap``
-slots.
+The banded layouts include ``cmap`` ones (:mod:`..ops.spmm_cmap`, the
+low-degree tier: an arbitrary set of source tiles a block), whose
+``BandedResidualLayout`` runs every mode; ``int8_features`` keeps to the
+contiguous band, as the JAX package does. Not ported
+(``NotImplementedError``): ``wide`` banded layouts.
 """
 
 from __future__ import annotations
@@ -51,7 +54,6 @@ from ..ops.sage_fused import _act, _ln_fwd_xla, banded_sage_apply, banded_sage_l
 from ..ops.spmm import spmm_apply
 from ..ops.spmm_banded import (
     BandedBlocks,
-    require_narrow,
     spmm_banded_apply,
     spmm_banded_infer_int8,
     spmm_banded_xla,
@@ -85,8 +87,6 @@ class BlockedSageConv(nn.Module):
         fuse_banded = (self.fused and isinstance(blocked_fwd, BandedBlocks)
                        and not blocked_fwd.wide and not self.int8_features)
         fuse_resid = self.fused and isinstance(blocked_fwd, BandedResidualLayout)
-        if fuse_banded:
-            require_narrow(blocked_fwd)
         wl, bl, wr = self.lin_l.weight.T, self.lin_l.bias, self.lin_r.weight.T
         if ln is not None:
             # act(LN(conv(x))) in one kernel each way; None slope is ReLU

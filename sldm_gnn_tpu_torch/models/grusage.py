@@ -13,9 +13,16 @@ The map branch runs the live :class:`~.map_modules.MapEncoder` over a
 :class:`~.map_modules.MapData` (training), or takes embeddings baked by
 :meth:`GruSage.encode_map` (serving; the encoder is then not built).
 
-Not ported yet (raise here): ``compute_dtype`` other than None,
-``sage_type='attention'``, the sharded map axes and the dense
-block-diagonal batches.
+A batch from ``pad_and_batch_aligned`` (``batch.adj`` set) takes the dense
+branch under ``sage_type='sage'``: SAGE aggregation by one batched matmul
+and pooling by a masked reshape-reduce (``grusage.py:240-253``).
+``compute_dtype='bfloat16'`` runs FC1, the SAGE (or attention) stack and
+FC2 in bf16 with f32 parameters and f32 logits; the GRU keeps its own
+precision (f32 under ``'scan'``). ``sage_type='attention'`` swaps the SAGE
+stack for :class:`~.attention.AttentionBlock`.
+
+Not ported (``NotImplementedError``): the sharded map axes
+(``map_edge_axis``, ``map_segment_axis``).
 """
 
 from __future__ import annotations
@@ -28,8 +35,9 @@ from torch import nn
 from ..graph.containers import PaddedGraphBatch
 from ..ops import gru_cuda
 from ..ops.gru import GRUParams, gru_forward
-from ..ops.segment import global_max_pool, global_mean_pool
-from .blocks import MLPStack, SageBlock
+from ..ops.segment import dense_max_pool, dense_mean_pool, global_max_pool, global_mean_pool
+from .attention import AttentionBlock
+from .blocks import MLPStack, SageBlock, linear
 from .map_modules import MapData, MapEncoder, MapSpatialAttention
 
 
@@ -141,21 +149,23 @@ class GruSage(nn.Module):
     def __init__(self, cfg: GruSageConfig, *, map_feat_dim: int | None = None):
         super().__init__()
         c = cfg
-        if c.compute_dtype is not None:
-            raise NotImplementedError(
-                f"compute_dtype={c.compute_dtype!r} is not ported yet (use None)")
-        if c.sage_type != "sage":
-            raise NotImplementedError(f"sage_type={c.sage_type!r} is not ported yet")
+        if c.compute_dtype not in (None, "bfloat16", "float32"):
+            raise ValueError(f"Unsupported compute_dtype: {c.compute_dtype!r} "
+                             "(use None/'float32' or 'bfloat16')")
+        if c.sage_type not in ("sage", "attention"):
+            raise ValueError(f"Unsupported sage_type: {c.sage_type}")
         if c.map_edge_axis is not None or c.map_segment_axis is not None:
-            raise NotImplementedError("sharded map axes are not ported yet")
+            raise NotImplementedError("sharded map axes (map_edge_axis, map_segment_axis) "
+                                      "are not ported")
         if c.global_pooling not in ("mean", "max", "double"):
             raise ValueError(f"Unsupported global_pooling: {c.global_pooling}")
         self.cfg = c
+        dt = torch.bfloat16 if c.compute_dtype == "bfloat16" else None
         self.st_emb = nn.Embedding(c.num_st_types, c.emb_dim)
         self.gru = GRUCell(c.dynamic_features_num, c.gru_hidden_size,
                            c.gru_num_layers, impl=c.gru_impl)
         self.fc1s = MLPStack(c.gru_hidden_size + 2 + c.emb_dim, c.fc1dims,
-                             c.negative_slope, c.dropout)
+                             c.negative_slope, c.dropout, dt)
         width = self.fc1s.out_dim
         self.map_encoder = None
         if c.map_included:
@@ -165,10 +175,14 @@ class GruSage(nn.Module):
                     c.mapenc_sage_hdims, c.dropout, c.negative_slope)
             self.map_attention = MapSpatialAttention(c.map_attention_topk, c.knn_impl)
             width += c.mapenc_sage_hdims[-1]
-        self.sage = SageBlock(width, c.sage_hidden_dims, c.negative_slope, c.dropout)
+        if c.sage_type == "attention":
+            self.sage = AttentionBlock(width, c.sage_hidden_dims, c.attention_qk_dim,
+                                       c.negative_slope, c.dropout, dt)
+        else:
+            self.sage = SageBlock(width, c.sage_hidden_dims, c.negative_slope, c.dropout, dt)
         width = c.sage_hidden_dims[-1] * (2 if c.global_pooling == "double" else 1)
-        self.fc2s = MLPStack(width, c.fc2dims, c.negative_slope, c.dropout)
-        self.linout = nn.Linear(self.fc2s.out_dim, c.out_dim)
+        self.fc2s = MLPStack(width, c.fc2dims, c.negative_slope, c.dropout, dt)
+        self.linout = nn.Linear(self.fc2s.out_dim, c.out_dim)  # f32 logits
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random weights from ``generator`` (for smoke runs; trained
@@ -224,18 +238,28 @@ class GruSage(nn.Module):
                 raise ValueError("baked map_embeddings require map_centroids")
             last_pos = batch.pos_raw[:, -1, :]
             ctx = self.map_attention(last_pos, map_centroids, map_embeddings)
-            x = torch.cat([x, ctx], dim=1)
+            dt = torch.promote_types(x.dtype, ctx.dtype)  # jnp.concatenate promotes
+            x = torch.cat([x.to(dt), ctx.to(dt)], dim=1)
 
-        x = self.sage(x, batch.edge_src, batch.edge_dst, batch.edge_mask, N,
-                      generator=generator)
+        # a pad_and_batch_aligned batch: aggregation and pooling scatter-free
+        dense = batch.adj is not None and c.sage_type == "sage"
+        if dense:
+            x = self.sage(x, batch.edge_src, batch.edge_dst, batch.edge_mask, N,
+                          adj=batch.adj, generator=generator)
+            vmax = batch.adj.shape[1]
+            mean_pool = lambda: dense_mean_pool(x, batch.node_mask, G, vmax)
+            max_pool = lambda: dense_max_pool(x, batch.node_mask, G, vmax)
+        else:
+            x = self.sage(x, batch.edge_src, batch.edge_dst, batch.edge_mask, N,
+                          generator=generator)
+            mean_pool = lambda: global_mean_pool(x, batch.node_graph, batch.node_mask, G)
+            max_pool = lambda: global_max_pool(x, batch.node_graph, batch.node_mask, G)
 
         if c.global_pooling == "mean":
-            x = global_mean_pool(x, batch.node_graph, batch.node_mask, G)
+            x = mean_pool()
         elif c.global_pooling == "max":
-            x = global_max_pool(x, batch.node_graph, batch.node_mask, G)
+            x = max_pool()
         else:
-            x = torch.cat([global_mean_pool(x, batch.node_graph, batch.node_mask, G),
-                           global_max_pool(x, batch.node_graph, batch.node_mask, G)],
-                          dim=1)
+            x = torch.cat([mean_pool(), max_pool()], dim=1)
         x = self.fc2s(x, generator=generator)
-        return self.linout(x)
+        return linear(self.linout, x, None)

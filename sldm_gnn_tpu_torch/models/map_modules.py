@@ -2,10 +2,11 @@
 
 Port of ``sldm_gnn_tpu/models/map_modules.py``:
 
-  * :func:`map_zscore_norm` (:28), :class:`MapData` (:37, without the
-    dense ``adj``) and :class:`MapEncoder` (:203, replicated form: the
-    lane-type embedding concatenated to the features, then a
-    :class:`~.blocks.SageBlock` over the map graph). Training runs the
+  * :func:`map_zscore_norm` (:28), :class:`MapData` (:37), :func:`dense_map_adj`
+    (:109) and :class:`MapEncoder` (:203, replicated form: the lane-type
+    embedding concatenated to the features, then a
+    :class:`~.blocks.SageBlock` over the map graph, by one dense matmul
+    when ``MapData.adj`` is set, else by segment ops). Training runs the
     encoder every step; :meth:`GruSage.encode_map` bakes its output into a
     snapshot for serving. The sharded variants are not ported.
   * :class:`MapSpatialAttention` (:250-321): the K nearest map segments per
@@ -25,6 +26,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -51,6 +53,9 @@ class MapData:
       edge_dst       [Em]    int64
       centroids      [S, 2]  float32 — segment centroids for the attention
       edge_mask      [Em]    bool or None — False on padding edges
+      adj            [1, S, S] float32 or None — the row-normalized dense
+                              mean-aggregation matrix (:func:`dense_map_adj`);
+                              the encoder then aggregates by one matmul
     """
 
     feats: torch.Tensor
@@ -59,6 +64,7 @@ class MapData:
     edge_dst: torch.Tensor
     centroids: torch.Tensor
     edge_mask: torch.Tensor | None = None
+    adj: torch.Tensor | None = None
 
     @property
     def num_segments(self) -> int:
@@ -82,6 +88,21 @@ class MapData:
                 v = v.to(device)
             out[f.name] = v
         return MapData(**out)
+
+
+def dense_map_adj(map_data: MapData) -> np.ndarray:
+    """Row-normalized ``[1, S, S]`` mean-aggregation matrix of the map graph
+    (host side, once): multigraph edges add up their multiplicity and rows
+    divide by max(deg, 1), as ``masked_mean_aggregate`` does. Attach with
+    ``dataclasses.replace(md, adj=torch.from_numpy(dense_map_adj(md)))``."""
+    s = map_data.num_segments
+    mask = map_data.mask().cpu().numpy()
+    src = map_data.edge_src.cpu().numpy()[mask]
+    dst = map_data.edge_dst.cpu().numpy()[mask]
+    adj = np.zeros((1, s, s), np.float32)
+    np.add.at(adj, (0, dst, src), 1.0)
+    adj /= np.maximum(adj.sum(axis=2, keepdims=True), 1.0)
+    return adj
 
 
 class MapEncoder(nn.Module):
@@ -108,7 +129,7 @@ class MapEncoder(nn.Module):
                              f"encoder was built for {self.feat_dim}")
         x = torch.cat([map_data.feats, self.lane_embedding(map_data.lane_type_cats)], dim=1)
         return self.sage(x, map_data.edge_src, map_data.edge_dst, map_data.mask(),
-                         map_data.num_segments, generator=generator)
+                         map_data.num_segments, adj=map_data.adj, generator=generator)
 
 
 class MapSpatialAttention(nn.Module):

@@ -138,20 +138,35 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, i, i, p, p,         # dx or NULL, partial, dw_smem, blocks, out, stream
     ]
     lib.gru_bwd_sg_launch.restype = i
+    lib.gru_scan_fwd_launch.argtypes = [
+        p, i64, i64, p, p,        # xproj, stride_t, stride_b, w_hh, b_hh
+        i, i, i, p, p,            # T, B, H, hs, stream
+    ]
+    lib.gru_scan_bwd_grid.argtypes = [i, i, pi]  # B, H, -> blocks
+    lib.gru_scan_bwd_launch.argtypes = [
+        p, i64, i64, p, p, p,     # xproj, stride_t, stride_b, hs, w_hh, b_hh
+        p, i64, i64, i, i, i,     # g, stride_t, stride_b, T, B, H
+        p, p, i, p, p,            # dxproj, partial, blocks, out, stream
+    ]
+    for name in ("gru_scan_fwd_launch", "gru_scan_bwd_grid", "gru_scan_bwd_launch"):
+        getattr(lib, name).restype = i
     f = ctypes.c_float
     lib.spmm_banded_launch.argtypes = [
-        p, i, p, i, i, i,         # a, a_f32, bo, nb, s_span, tile
+        p, i, p, p, p, i,         # a, a_f32, bo, cmap, woff, k
+        i, i, i,                  # nb, s_span, tile
         p, i, i, p, p, p, p,      # x, x_bf16, D, cs, rs, out, stream
     ]
     lib.sage_fwd_launch.argtypes = [
-        p, i, p, p, i, i, i, i,   # a, a_f32, bo, rs, nb, s_span, tile, k
+        p, i, p, p, p,            # a, a_f32, bo, cmap, woff
+        p, i, i, i, i,            # rs, nb, s_span, tile, k
         p, i, i, i, p, p,         # x, x_bf16, D, H, wl, wr
         p, p, p, f, i, f,         # bias, gamma, beta, eps, has_act, slope
         p, i, p, p, p, p, p,      # r_c, r_bf16, rg, out, xhat, rstd, stream
     ]
     lib.sage_bwd_grid.argtypes = [i, i, i, i, pi]  # nb, D, H, with_dw, -> blocks
     lib.sage_bwd_launch.argtypes = [
-        p, i, p, p, p, i, i, i, i,  # a, a_f32, bo, cs, rstd, nb, s_span, tile, k
+        p, i, p, p, p,              # a, a_f32, bo, cmap, woff
+        p, p, i, i, i, i,           # cs, rstd, nb, s_span, tile, k
         p, i, p, i, i,              # R, r_bf16, O, o_bf16, H
         p, p, i, p, i, p,           # wlt, wrt, D, t_c, tc_bf16, rg
         p, i, p, i, p, i,           # x, x_bf16, dx, dx_bf16, t_out, t_bf16
@@ -185,6 +200,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, i, i, i,   # row_ptr, perm, block_meta, src_local, weight, ec, tile, rows
         p, i, p, i, i, p, p,      # xq, D, scales, per_row, out_bf16, out, stream
     ]
+    lib.spmm_mk_launch.argtypes = [
+        p, p, p, p, p, i,         # row_ptr, grp_src, grp_ptr, perm, weight, rows
+        p, i, i, i, p, p,         # x, x_bf16, D, fast, out, stream
+    ]
     lib.sddmm_launch.argtypes = [
         p, p, p, p, i, i, i,      # block_meta, src_local, dst_local, weight, W, ec, tile
         p, p, i, p, p,            # x, y, D, out, stream
@@ -192,7 +211,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     for name in ("spmm_banded_launch", "sage_fwd_launch", "sage_bwd_grid", "sage_bwd_launch",
                  "ln_bwd_prologue_launch", "spmm_onehot_launch", "spmm_dense_launch",
                  "spmm_gather_launch", "spmm_banded_int8_launch", "quant_rows_launch",
-                 "spmm_onehot_int8_launch", "sddmm_launch"):
+                 "spmm_onehot_int8_launch", "sddmm_launch", "spmm_mk_launch"):
         getattr(lib, name).restype = i
     lib.knn_topk_launch.argtypes = [p, i, p, i, i, p, p, p]
     lib.knn_topk_launch.restype = i

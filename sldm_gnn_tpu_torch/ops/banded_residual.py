@@ -106,6 +106,25 @@ def _residual_maps(nodes_r: np.ndarray, k: int, tile: int, steps: int):
     return rows.astype(np.int32), rg, order, len(uniq) + 1
 
 
+def cap_multiplicity(src: np.ndarray, dst: np.ndarray, keep: np.ndarray,
+                     cap: int) -> np.ndarray:
+    """Spill the copies of a (src, dst) pair beyond ``cap`` out of ``keep``
+    (in place; returned), so that the count tiles stay within ``cap``."""
+    kept_idx = np.nonzero(keep)[0]
+    s_in0, d_in0 = src[kept_idx], dst[kept_idx]
+    order = np.lexsort((s_in0, d_in0))
+    ss, dd = s_in0[order], d_in0[order]
+    new = np.ones(len(ss), bool)
+    new[1:] = (ss[1:] != ss[:-1]) | (dd[1:] != dd[:-1])
+    run_id = np.cumsum(new) - 1
+    first = np.nonzero(new)[0]
+    within = np.arange(len(ss)) - first[run_id]
+    drop = within >= cap
+    if drop.any():
+        keep[kept_idx[order[drop]]] = False
+    return keep
+
+
 def split_banded_residual(src: np.ndarray, dst: np.ndarray, nb: int, *, tile: int = TILE,
                           span: int = 8) -> np.ndarray:
     """In-band mask for ``span``: forward windows over all edges, then
@@ -182,18 +201,7 @@ def prepare_banded_residual_mean_aggregate(
             f"{4 * resid_frac:.4f}: graph is not near-banded — use the "
             "dense/hybrid backends")
     if count_cap is not None and keep.any():
-        kept_idx = np.nonzero(keep)[0]
-        s_in0, d_in0 = src[kept_idx], dst[kept_idx]
-        order = np.lexsort((s_in0, d_in0))
-        ss, dd = s_in0[order], d_in0[order]
-        new = np.ones(len(ss), bool)
-        new[1:] = (ss[1:] != ss[:-1]) | (dd[1:] != dd[:-1])
-        run_id = np.cumsum(new) - 1
-        first = np.nonzero(new)[0]
-        within = np.arange(len(ss)) - first[run_id]
-        drop = within >= count_cap
-        if drop.any():
-            keep[kept_idx[order[drop]]] = False
+        keep = cap_multiplicity(src, dst, keep, count_cap)
         frac = float((len(src) - keep.sum()) / e)
         if frac > 4 * resid_frac:
             raise ValueError(

@@ -1,6 +1,6 @@
-"""Fused GRU with bf16 operands, forward and backward: the CUDA kernels
-``csrc/gru_fwd.cu``, ``csrc/gru_bwd.cu`` and ``csrc/gru_bwd_sg.cu`` and
-their plain PyTorch versions.
+"""Fused GRU kernels, forward and backward: the bf16 CUDA kernels
+``csrc/gru_fwd.cu``, ``csrc/gru_bwd.cu`` and ``csrc/gru_bwd_sg.cu``, the f32
+v1 scan ``csrc/gru_scan.cu``, and their plain PyTorch versions.
 
 Port of ``sldm_gnn_tpu/ops/gru_pallas.py`` v2 and v3 (``gru_last_pallas``
 :477, ``gru_seq_pallas`` :544, ``gru_last_forward`` :591,
@@ -18,6 +18,15 @@ sums and gate math, the carry rounded to bf16 after every step; in the
 backward an f32 dh carry and dxp/dhp rounded to bf16 before each product.
 Against the f32 scan (:mod:`.gru`) that is ~1e-2 relative after 100
 frames, the JAX package's v2 contract.
+
+The v1 scan (``_fwd_kernel``/``_bwd_kernel``, ``gru_scan_pallas`` :176 and
+``gru_forward_pallas`` :196) is f32 throughout: :func:`gru_scan_fwd` runs
+the recurrence over precomputed input projections ``xproj [T, B, 3H]``,
+:func:`gru_scan_bwd` its BPTT recomputing the gates from ``hs[t-1]``,
+:class:`GruScanFn` wires them into autograd, and :func:`gru_forward_v1`
+chains layers as ``gru_forward_pallas`` does (the input projection is one
+``torch.matmul`` outside the kernel, whose autograd gives ``dx`` and
+``dW_ih``).
 
 Each wrapper runs its kernel on CUDA tensors and its plain version on CPU
 tensors; it never falls back from one to the other. :class:`GruLastFn`
@@ -466,3 +475,218 @@ def gru_last_forward(params: GRUParams, x: torch.Tensor, *,
     for layer in layers[:-1]:
         out = GruSeqFn.apply(out, *layer, store_gates)
     return GruLastFn.apply(out, *layers[-1], store_gates)
+
+
+# ------------------------------------------------------------ the v1 scan (f32)
+
+# The widest H each v1 kernel takes on an H100: the forward's 4H threads
+# and their registers must fit one SM (128), the backward's f32 W_hh and
+# its rows one block's 227 KB of shared memory (123); chip_smoke.py probes
+# both.
+SCAN_WIDEST_H = {"forward": 128, "backward": 123}
+
+
+def _check_scan(xproj, w_hh, b_hh):
+    if xproj.dim() != 3:
+        raise ValueError(f"xproj must be [T, B, 3H], got {tuple(xproj.shape)}")
+    H = w_hh.shape[0]
+    if tuple(w_hh.shape) != (H, 3 * H) or tuple(b_hh.shape) != (3 * H,) \
+            or xproj.shape[2] != 3 * H:
+        raise ValueError(f"w_hh must be [H, 3H], b_hh [3H] and xproj [T, B, 3H], got "
+                         f"{tuple(w_hh.shape)}, {tuple(b_hh.shape)}, {tuple(xproj.shape)}")
+
+
+def _scan_gates(xp, h, w_hh, b_hh):
+    """(r, z, n, hn) of one step in f32: ``hn`` is the n gate's hidden
+    projection, bias included."""
+    hr, hz, hn = (h @ w_hh + b_hh).chunk(3, dim=-1)
+    xr, xz, xn = xp.chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    return r, z, torch.tanh(xn + r * hn), hn
+
+
+def gru_scan_fwd_plain(xproj: torch.Tensor, w_hh: torch.Tensor,
+                       b_hh: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the v1 forward kernel: ``hs [T, B, H]`` f32
+    from ``xproj [T, B, 3H]`` (``x @ w_ih + b_ih``), ``w_hh [H, 3H]``,
+    ``b_hh [3H]``, with ``h_0 = 0``."""
+    _check_scan(xproj, w_hh, b_hh)
+    T, B, _ = xproj.shape
+    H = w_hh.shape[0]
+    xp, w, b = xproj.float(), w_hh.float(), b_hh.float()
+    h = xp.new_zeros((B, H))
+    hs = xp.new_empty((T, B, H))
+    for t in range(T):
+        _, z, n, _ = _scan_gates(xp[t], h, w, b)
+        h = (1.0 - z) * n + z * h
+        hs[t] = h
+    return hs
+
+
+def gru_scan_bwd_plain(xproj: torch.Tensor, hs: torch.Tensor, w_hh: torch.Tensor,
+                       b_hh: torch.Tensor, g: torch.Tensor):
+    """Plain PyTorch version of the v1 backward kernel (``_bwd_kernel``):
+    reverse BPTT over the forward's ``hs [T, B, H]`` and the cotangent ``g
+    [T, B, H]``, recomputing every step's gates from ``hs[t-1]``. Returns
+    ``(dxproj [T, B, 3H], dW_hh [H, 3H], db_hh [3H])`` in f32."""
+    _check_scan(xproj, w_hh, b_hh)
+    T, B, _ = xproj.shape
+    H = w_hh.shape[0]
+    xp, w, b = xproj.float(), w_hh.float(), b_hh.float()
+    dxproj = xp.new_empty(xp.shape)
+    dw = xp.new_zeros((H, 3 * H))
+    db = xp.new_zeros(3 * H)
+    dh = xp.new_zeros((B, H))
+    for t in reversed(range(T)):
+        hprev = hs[t - 1].float() if t > 0 else xp.new_zeros((B, H))
+        r, z, n, hn = _scan_gates(xp[t], hprev, w, b)
+        d = dh + g[t].float()
+        dn = d * (1.0 - z)
+        dz = d * (hprev - n)
+        dn_pre = dn * (1.0 - n * n)
+        dr_pre = dn_pre * hn * r * (1.0 - r)
+        dz_pre = dz * z * (1.0 - z)
+        dxproj[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=1)
+        dhp = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=1)
+        dw += hprev.T @ dhp
+        db += dhp.sum(0)
+        dh = d * z + dhp @ w.T
+    return dxproj, dw, db
+
+
+_SLDM_ERR_SMEM = 100001  # csrc/common.cuh
+
+
+def _scan_failed(lib, code, what, H):
+    from . import _build
+
+    if code == _SLDM_ERR_SMEM:
+        raise ValueError(
+            f"{what}: H={H} needs more shared memory or registers than a block may use "
+            f"(widest H on an H100: forward {SCAN_WIDEST_H['forward']}, backward "
+            f"{SCAN_WIDEST_H['backward']})")
+    _build.check(lib, code, what)
+
+
+def _scan_args(xproj, w_hh, b_hh):
+    if xproj.device.type != "cuda" or xproj.dtype != torch.float32:
+        raise ValueError(f"the v1 scan runs on float32 CUDA or CPU tensors, got "
+                         f"{xproj.dtype} on {xproj.device}")
+    if xproj.stride(2) != 1:
+        xproj = xproj.contiguous()
+    dev = xproj.device
+    return (xproj, w_hh.to(dev, torch.float32).contiguous(),
+            b_hh.to(dev, torch.float32).contiguous())
+
+
+def gru_scan_fwd(xproj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """:func:`gru_scan_fwd_plain`'s function: the ``csrc/gru_scan.cu``
+    forward kernel for CUDA tensors, the plain version for CPU tensors.
+    ``xproj`` may be any strided view whose last dimension is contiguous."""
+    if xproj.device.type == "cpu":
+        return gru_scan_fwd_plain(xproj, w_hh, b_hh)
+    _check_scan(xproj, w_hh, b_hh)
+    xproj, w, b = _scan_args(xproj, w_hh, b_hh)
+    T, B, _ = xproj.shape
+    H = w.shape[0]
+    hs = torch.empty((T, B, H), device=xproj.device, dtype=torch.float32)
+    if T == 0 or B == 0:
+        return hs
+    from . import _build
+
+    lib = _build.load()
+    with torch.cuda.device(xproj.device):
+        code = lib.gru_scan_fwd_launch(
+            xproj.data_ptr(), xproj.stride(0), xproj.stride(1), w.data_ptr(), b.data_ptr(),
+            T, B, H, hs.data_ptr(), torch.cuda.current_stream(xproj.device).cuda_stream)
+    _scan_failed(lib, code, f"gru_scan_fwd kernel (T={T}, B={B}, H={H})", H)
+    gru_scan_fwd.launches += 1
+    return hs
+
+
+gru_scan_fwd.launches = 0
+
+
+def gru_scan_bwd(xproj: torch.Tensor, hs: torch.Tensor, w_hh: torch.Tensor,
+                 b_hh: torch.Tensor, g: torch.Tensor):
+    """:func:`gru_scan_bwd_plain`'s function: the ``csrc/gru_scan.cu``
+    backward kernel (a persistent grid with per-block partial dW_hh, summed
+    in block order by a second kernel) for CUDA tensors, the plain version
+    for CPU tensors."""
+    if xproj.device.type == "cpu":
+        return gru_scan_bwd_plain(xproj, hs, w_hh, b_hh, g)
+    _check_scan(xproj, w_hh, b_hh)
+    xproj, w, b = _scan_args(xproj, w_hh, b_hh)
+    T, B, _ = xproj.shape
+    H = w.shape[0]
+    dev = xproj.device
+    if tuple(hs.shape) != (T, B, H) or hs.dtype != torch.float32 or hs.device != dev:
+        raise ValueError(f"hs must be float32 [{T}, {B}, {H}] on {dev}")
+    if tuple(g.shape) != (T, B, H):
+        raise ValueError(f"the cotangent must be [{T}, {B}, {H}], got {tuple(g.shape)}")
+    hs = hs.contiguous()
+    g = g.to(dev, torch.float32)
+    if g.stride(2) != 1:
+        g = g.contiguous()
+    dxproj = torch.empty((T, B, 3 * H), device=dev, dtype=torch.float32)
+    out = torch.zeros((H + 1, 3 * H), device=dev, dtype=torch.float32)
+    if T > 0 and B > 0:
+        import ctypes
+
+        from . import _build
+
+        lib = _build.load()
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            code = lib.gru_scan_bwd_grid(B, H, ctypes.byref(blocks))
+            _scan_failed(lib, code, f"gru_scan_bwd grid (B={B}, H={H})", H)
+            partial = torch.empty((blocks.value, H + 1, 3 * H), device=dev,
+                                  dtype=torch.float32)
+            code = lib.gru_scan_bwd_launch(
+                xproj.data_ptr(), xproj.stride(0), xproj.stride(1), hs.data_ptr(),
+                w.data_ptr(), b.data_ptr(), g.data_ptr(), g.stride(0), g.stride(1), T, B, H,
+                dxproj.data_ptr(), partial.data_ptr(), blocks.value, out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _scan_failed(lib, code, f"gru_scan_bwd kernel (T={T}, B={B}, H={H})", H)
+        gru_scan_bwd.launches += 1
+    return dxproj, out[:H], out[H]
+
+
+gru_scan_bwd.launches = 0
+
+
+class GruScanFn(torch.autograd.Function):
+    """``hs [T, B, H]`` of one layer from ``xproj [T, B, 3H]`` (the custom VJP
+    of ``gru_scan_pallas``): forward :func:`gru_scan_fwd`, backward
+    :func:`gru_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, xproj, w_hh, b_hh):
+        hs = gru_scan_fwd(xproj, w_hh, b_hh)
+        ctx.save_for_backward(xproj, hs, w_hh, b_hh)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g):
+        xproj, hs, w_hh, b_hh = ctx.saved_tensors
+        dxproj, dw, db = gru_scan_bwd(xproj, hs, w_hh, b_hh, g)
+        return dxproj, dw.to(w_hh.dtype), db.to(b_hh.dtype)
+
+
+def gru_scan(xproj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor) -> torch.Tensor:
+    """Differentiable v1 scan: ``hs [T, B, H]`` from ``xproj [T, B, 3H]``."""
+    return GruScanFn.apply(xproj, w_hh, b_hh)
+
+
+def gru_forward_v1(params: GRUParams, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``gru_forward_pallas``: a GRU stack over ``x [B, T, D]`` through the
+    v1 scan, ``(outputs [B, T, H], h_last [B, H])``. Each layer's input
+    projection is one f32 ``torch.matmul`` (TF32 stays off, PyTorch's
+    default, so xproj is f32); its gradient comes from autograd, as the
+    XLA einsum's does in JAX."""
+    out = x
+    for w_ih, b_ih, w_hh, b_hh in params.layers():
+        xproj = torch.matmul(out, w_ih) + b_ih  # [B, T, 3H]
+        out = gru_scan(xproj.transpose(0, 1), w_hh, b_hh).transpose(0, 1)
+    return out, out[:, -1, :]

@@ -21,8 +21,10 @@ plain versions (``*_plain``) repeat them; the f32 twins (the ``use_pallas
 LN) folds into the tiles' columns, as the TPU kernels fold it
 (``sage_fused.py:407-409, 763-767``).
 
-Left out: the ``ypre`` output (halo overlap), ``cmap`` slots and
-``wide`` layouts (``NotImplementedError``).
+``cmap`` layouts (:mod:`.spmm_cmap`) run through the same kernels and
+plain versions, their slots reading ``woff[b // k] + cmap[b, s]``. Left
+out: the ``ypre`` output (halo overlap) and ``wide`` layouts
+(``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from .spmm_banded import (
     BandedBlocks,
     bf16r,
     check_cuda_layout,
+    cmap_args,
     gather_slots,
     require_narrow,
     scale_ptr,
@@ -244,7 +247,7 @@ def banded_sage_fwd(x, wl, wr, bias, blocks: BandedBlocks, *,
     with torch.cuda.device(dev):
         code = lib.sage_fwd_launch(
             blocks.a.data_ptr(), int(blocks.a.dtype == torch.float32), bo.data_ptr(),
-            scale_ptr(blocks.row_scale, n, dev), blocks.num_dst_blocks, blocks.s_span,
+            *cmap_args(blocks), scale_ptr(blocks.row_scale, n, dev), blocks.num_dst_blocks, blocks.s_span,
             blocks.tile, blocks.k, x.data_ptr(), int(x.dtype == BF16), d, h,
             wl_b.data_ptr(), wr_b.data_ptr(), _ptr(bias_f), _ptr(gamma_f), _ptr(beta_f),
             float(eps), int(negative_slope is not None),
@@ -285,7 +288,7 @@ def _bwd_launch(lib, dev, blocks_rev, rows, own, rstd, wl, wr, x, resid, dx_dtyp
         partial = dw = None
     code = lib.sage_bwd_launch(
         blocks_rev.a.data_ptr(), int(blocks_rev.a.dtype == torch.float32), bo.data_ptr(),
-        scale_ptr(blocks_rev.col_scale, n, dev), _ptr(rstd), blocks_rev.num_dst_blocks,
+        *cmap_args(blocks_rev), scale_ptr(blocks_rev.col_scale, n, dev), _ptr(rstd), blocks_rev.num_dst_blocks,
         blocks_rev.s_span, blocks_rev.tile, blocks_rev.k,
         rows.data_ptr(), int(rows.dtype == BF16), own.data_ptr(), int(own.dtype == BF16), h,
         wlt.data_ptr(), wrt.data_ptr(), d, _ptr(r_c), r_bf16, _ptr(rg),

@@ -10,15 +10,18 @@ source tile:
 
 The TPU kernel streams one x window per group of ``k`` blocks (``woff``,
 ``off``, ``wsz``); the layouts keep those arrays so that they stay equal
-to the JAX builders', and the CUDA kernel reads ``bo`` alone.
+to the JAX builders', and the CUDA kernel reads ``bo`` alone. A ``cmap``
+layout (:mod:`.spmm_cmap`) replaces the contiguous band by an arbitrary
+set of source tiles: slot ``s`` of block ``b`` reads tile ``woff[b // k] +
+cmap[b * s_span + s]``, in the kernels and in their plain versions.
 
 The int8 inference kernel (``csrc/spmm_banded_int8.cu``) aggregates
-per-tensor int8 features over the int8 count tiles exactly in integers.
+per-tensor int8 features over the int8 count tiles exactly in integers
+(contiguous band only: the JAX package asserts no ``cmap``).
 
 Left out (each raises ``NotImplementedError``): the int4 view
-(``counts_to_int4``), ``widen_banded`` (``wide``), ``cmap`` slots,
-``chunk_blocks`` and the native OpenMP count fill; the builders take the
-numpy path.
+(``counts_to_int4``), ``widen_banded`` (``wide``), ``chunk_blocks`` and
+the native OpenMP count fill; the builders take the numpy path.
 """
 
 from __future__ import annotations
@@ -44,8 +47,11 @@ class BandedBlocks:
     off   [NB] int32    bo[b] - woff[b // K]
     row_scale / col_scale [N, 1] f32 or None: the mean's 1/deg, on the
     destination rows (forward layout) or the source rows (reverse layout).
-    ``cmap`` and ``wide`` mirror the JAX fields; nothing here builds them
-    and every consumer raises ``NotImplementedError`` on them.
+    cmap  [NB * S_SPAN] int32 or None: window-relative source tile of every
+          slot (:mod:`.spmm_cmap` builds it); slot s of block b then reads
+          tile woff[b // K] + cmap[b * S_SPAN + s] instead of bo[b] + s.
+    ``wide`` mirrors the JAX field; nothing here builds it and every
+    consumer raises ``NotImplementedError`` on it.
     """
 
     a: torch.Tensor
@@ -80,8 +86,6 @@ def require_narrow(blocks: BandedBlocks) -> None:
     """Raise ``NotImplementedError`` on the layouts the port leaves out."""
     if blocks.wide:
         raise NotImplementedError("wide banded layouts (widen_banded) are not ported")
-    if blocks.cmap is not None:
-        raise NotImplementedError("cmap slots (ops/spmm_cmap.py) are not ported")
 
 
 def int4_count_safe(blocks: BandedBlocks) -> bool:
@@ -232,11 +236,33 @@ def bf16r(t: torch.Tensor) -> torch.Tensor:
 
 
 def slot_index(blocks: BandedBlocks) -> torch.Tensor:
-    """[NB, S_SPAN] source block of every slot (in range by the builder's
-    base clamp)."""
+    """[NB, S_SPAN] source block of every slot: ``bo[b] + s`` (in range by
+    the builder's base clamp), or with ``cmap`` ``woff[b // k] + cmap[b,
+    s]`` clamped to the blocks (the JAX twin's ``spmm_banded.py:606-612``)."""
     nb, s_span = blocks.num_dst_blocks, blocks.s_span
+    if blocks.cmap is not None:
+        woff_b = torch.repeat_interleave(blocks.woff.long(), blocks.k)[:nb]
+        return (woff_b[:, None] + blocks.cmap.long().reshape(nb, s_span)).clamp(0, nb - 1)
     ar = torch.arange(s_span, device=blocks.bo.device)
     return (blocks.bo.long()[:, None] + ar[None, :]).clamp(0, nb - 1)
+
+
+def cmap_args(blocks: BandedBlocks) -> tuple[int | None, int | None]:
+    """``(cmap, woff)`` device pointers for a launch, or ``(None, None)`` for
+    a contiguous band. The kernels stage at most 64 slots of a ``cmap``
+    block."""
+    if blocks.cmap is None:
+        return None, None
+    if blocks.cmap.numel() != blocks.num_dst_blocks * blocks.s_span \
+            or blocks.woff.numel() != blocks.num_dst_blocks // blocks.k:
+        raise ValueError("cmap must be [NB * S_SPAN] and woff [NB / k]")
+    if blocks.s_span > 64:
+        raise ValueError(f"a cmap layout of {blocks.s_span} slots a block is not taken (<= 64)")
+    for name in ("cmap", "woff"):
+        t = getattr(blocks, name)
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != blocks.a.device:
+            raise ValueError(f"{name} must be contiguous int32 on {blocks.a.device}")
+    return blocks.cmap.data_ptr(), blocks.woff.data_ptr()
 
 
 def gather_slots(v: torch.Tensor, blocks: BandedBlocks) -> torch.Tensor:
@@ -287,7 +313,8 @@ def scale_ptr(s: torch.Tensor | None, n: int, dev) -> int | None:
 
 def spmm_banded_xla(x: torch.Tensor, blocks: BandedBlocks) -> torch.Tensor:
     """The JAX ``spmm_banded_xla`` (:590) without ``chunk_blocks``: the
-    same aggregation at x's dtype, with no bf16 rounding."""
+    same aggregation at x's dtype, with no bf16 rounding (``cmap`` slots
+    included)."""
     require_narrow(blocks)
     if blocks.col_scale is not None:
         x = (x.float() * blocks.col_scale).to(x.dtype)
@@ -329,7 +356,8 @@ def spmm_banded(x: torch.Tensor, blocks: BandedBlocks) -> torch.Tensor:
     with torch.cuda.device(x.device):
         code = lib.spmm_banded_launch(
             blocks.a.data_ptr(), int(blocks.a.dtype == torch.float32),
-            blocks.bo.to(torch.int32).contiguous().data_ptr(), nb, blocks.s_span, tile,
+            blocks.bo.to(torch.int32).contiguous().data_ptr(), *cmap_args(blocks), blocks.k,
+            nb, blocks.s_span, tile,
             x.data_ptr(), int(x.dtype == BF16), d,
             scale_ptr(blocks.col_scale, n, x.device), scale_ptr(blocks.row_scale, n, x.device),
             out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)

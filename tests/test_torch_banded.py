@@ -470,18 +470,24 @@ def test_cpu_wrappers_run_plain_versions_without_counting(rng):
 
 
 def test_layouts_left_out_raise(rng):
+    """``wide`` layouts stay unported and raise. ``cmap`` slots are ported
+    (tests/test_torch_cmap.py): a cmap that names each block's own band
+    (``off[b] + s``) reads the contiguous layout's tiles, bit for bit."""
     import dataclasses
 
     fwd, rev, _, _, a = _setup(rng)
     x = _t(a["x"])
     wide = dataclasses.replace(fwd, wide=True)
-    cmap = dataclasses.replace(fwd, cmap=torch.zeros(fwd.num_dst_blocks * fwd.s_span,
-                                                     dtype=torch.int32))
-    for lay in (wide, cmap):
-        for fn in (tsb.spmm_banded_xla, tsb.spmm_banded_plain, tsb.spmm_banded):
-            with pytest.raises(NotImplementedError):
-                fn(x, lay)
+    for fn in (tsb.spmm_banded_xla, tsb.spmm_banded_plain, tsb.spmm_banded):
         with pytest.raises(NotImplementedError):
-            tsf.banded_sage_fwd(x, _t(a["wl"]), _t(a["wr"]), None, lay)
+            fn(x, wide)
+    with pytest.raises(NotImplementedError):
+        tsf.banded_sage_fwd(x, _t(a["wl"]), _t(a["wr"]), None, wide)
     with pytest.raises(NotImplementedError):
         tsb.prepare_banded_mean_aggregate(np.array([0]), np.array([1]), 10, tile=32, wide=True)
+    band = (fwd.off.long()[:, None] + torch.arange(fwd.s_span)[None, :]).to(torch.int32)
+    cmap = dataclasses.replace(fwd, cmap=band.reshape(-1).contiguous())
+    for fn in (tsb.spmm_banded_xla, tsb.spmm_banded_plain, tsb.spmm_banded):
+        assert torch.equal(fn(x, cmap), fn(x, fwd))
+    assert torch.equal(tsf.banded_sage_fwd(x, _t(a["wl"]), _t(a["wr"]), None, cmap),
+                       tsf.banded_sage_fwd(x, _t(a["wl"]), _t(a["wr"]), None, fwd))

@@ -231,15 +231,23 @@ def test_classifier_trains_through_the_kernel_path(rng, layout):
 
 
 def test_left_out_options_raise(rng):
-    """Only ``wide`` banded layouts and ``cmap`` slots stay unported."""
+    """Only ``wide`` banded layouts stay unported. ``cmap`` slots run every
+    mode (tests/test_torch_cmap.py): cmaps that name each block's own band
+    give the contiguous layouts' logits, bit for bit."""
     (tf, tr), _, n_pad, _, _ = _layouts(rng, "banded")
     x = torch.from_numpy(_data(n_pad)[0])
-    cmap = torch.zeros(tf.num_dst_blocks * tf.s_span, dtype=torch.int32)
+
+    def as_cmap(b):
+        band = (b.off.long()[:, None] + torch.arange(b.s_span)[None, :]).to(torch.int32)
+        return dataclasses.replace(b, cmap=band.reshape(-1).contiguous())
+
     for mode in ("unfused", "fused", "fused_ln"):
         model = BlockedSageClassifier(HIDDEN, CLASSES, in_features=D, **MODES[mode])
-        for lay in (dataclasses.replace(tf, wide=True), dataclasses.replace(tf, cmap=cmap)):
-            with pytest.raises(NotImplementedError):
-                model(x, lay, tr, n_pad)
+        with pytest.raises(NotImplementedError):
+            model(x, dataclasses.replace(tf, wide=True), tr, n_pad)
+        with torch.no_grad():
+            assert torch.equal(model(x, as_cmap(tf), as_cmap(tr), n_pad),
+                               model(x, tf, tr, n_pad)), mode
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])

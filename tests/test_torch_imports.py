@@ -48,6 +48,11 @@ INT8_SDDMM_SLICE = ["sldm_gnn_tpu_torch/ops/sddmm.py", "sldm_gnn_tpu_torch/graph
                     "sldm_gnn_tpu_torch/graph/layout_io.py"]
 
 
+LAST_KERNELS_SLICE = ["sldm_gnn_tpu_torch/ops/spmm_mk.py", "sldm_gnn_tpu_torch/ops/spmm_cmap.py",
+                      "sldm_gnn_tpu_torch/models/attention.py",
+                      "sldm_gnn_tpu_torch/ops/gru_cuda.py"]
+
+
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "sldm_gnn_tpu_torch/ops/gru_cuda.py" in names
@@ -56,6 +61,7 @@ def test_port_files_exist():
     assert set(BANDED_SLICE) <= names  # and the banded GraphSAGE slice
     assert set(LAYOUT_SLICE) <= names  # and the one-hot, dense, hybrid and gather layouts
     assert set(INT8_SDDMM_SLICE) <= names  # and the int8 one-hot, SDDMM, reorder, layout files
+    assert set(LAST_KERNELS_SLICE) <= names  # and the megakernel, cmap, attention, v1 scan
 
 
 def test_port_modules_import_with_jax_unavailable():
