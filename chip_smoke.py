@@ -59,7 +59,13 @@ launch count set to 0 just before a path and read just after it:
   * the megakernel SpMM (``spmm_mk``, both modes) on bench.py's graph;
   * the cmap tier on a scattered low-degree graph of 200 064 nodes
     (``tests/test_spmm_cmap.py``'s generator): its four banded kernels,
-    bench.py's fused step and the classifier (``fused_ln`` and unfused).
+    bench.py's fused step and the classifier (``fused_ln`` and unfused);
+  * before the banded phases, a sweep of the two tensor-core kernels
+    (``spmm_banded`` and the reverse kernel of ``banded_sage_bwd`` /
+    ``banded_sage_ln_bwd``) over ragged shapes on a small graph: tiles 32,
+    64 and 128, widths (D, H) of (40, 4), (4, 40) and (128, 96), f32 and
+    bf16, int8 counts and f32 weights, with and without scales, x and the
+    residual, and a cmap layout; each against its plain version.
 
 It prints its findings, a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -965,7 +971,7 @@ def profile_steps(run_step, label: str, keys: tuple[str, ...], steps: int = 3) -
 
 GRU_KERNEL_KEYS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_bwd_reduce", "knn_topk_kernel")
 BANDED_KERNEL_KEYS = ("spmm_banded_kernel", "sage_fwd_kernel", "sage_bwd_kernel",
-                      "ln_bwd_prologue_kernel", "reduce_partials_kernel")
+                      "sage_dw_kernel", "ln_bwd_prologue_kernel", "reduce_partials_kernel")
 LAYOUT_KERNEL_KEYS = ("spmm_onehot_kernel", "spmm_dense_kernel", "spmm_gather_kernel")
 
 
@@ -2191,6 +2197,119 @@ def check_grusage_rest(mods: dict, batch, md, graphs, dev, smi: str) -> dict:
     return counts
 
 
+# the ragged sweep of the two tensor-core kernels (spmm_banded and the
+# reverse kernel of banded_sage_bwd / banded_sage_ln_bwd): a small local
+# graph (seed 0) at every tile the kernels take a step of, and feature
+# widths (D, H) that are not multiples of 16 or 8, or differ, or are the
+# widest; the cmap tier on a small scattered graph
+SWEEP_NODES = 3000
+SWEEP_DEG = 6
+SWEEP_TILES = (32, 64, 128)
+SWEEP_WIDTHS = ((40, 4), (4, 40), (128, 96))
+SWEEP_CMAP_NODES = 4096
+
+
+def check_ragged_sweep(mods: dict, dev) -> int:
+    """spmm_banded, banded_sage_bwd and banded_sage_ln_bwd against their
+    plain versions at BANDED_REL (max|err| / max|plain| per output), two
+    launches bit-equal, outputs finite: tiles 32, 64 and 128; (D, H) in
+    SWEEP_WIDTHS; bf16 and f32 activations; int8 counts and f32 weight
+    tiles (a_f32); the forward layout (rs), the reverse layout (cs) and
+    neither scale; with and without x; the compact residual; and a cmap
+    layout. Returns the number of cases held."""
+    tsb, tsf, tbr, tcm = (mods[k] for k in ("spmm_banded", "sage_fused", "banded_residual",
+                                            "spmm_cmap"))
+    gen = torch.Generator().manual_seed(SEED)
+    worst = {"spmm_banded": 0.0, "banded_sage_bwd": 0.0, "banded_sage_ln_bwd": 0.0}
+    n_cases = 0
+
+    def hold(name, what, kernel, plain):
+        nonlocal n_cases
+        got, again, want = kernel(), kernel(), plain()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        got, again, want = (v if isinstance(v, tuple) else (v,) for v in (got, again, want))
+        rel = max(((a.float() - b.float()).abs().max()
+                   / b.float().abs().max().clamp_min(1e-30)).item() for a, b in zip(got, want))
+        stable = all(torch.equal(a, b) for a, b in zip(got, again))
+        if rel > BANDED_REL or not stable or not all(torch.isfinite(a).all() for a in got):
+            raise AssertionError(f"ragged sweep: {name} {what}: max|err|/max|plain| {rel:.3e} "
+                                 f"(tol {BANDED_REL}), two launches bit-equal {stable}")
+        worst[name] = max(worst[name], rel)
+        n_cases += 1
+
+    def rand(*shape, dt=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dt)
+
+    def sweep(tag, lay8, lay32, resid, n_pad):
+        rev8 = lay8[1]
+        for d, h in SWEEP_WIDTHS:
+            for dt in (torch.bfloat16, torch.float32):
+                dn = f"{tag} D {d} H {h} {'bf16' if dt == torch.bfloat16 else 'f32'}"
+                x, g = rand(n_pad, d, dt=dt), rand(n_pad, h, dt=dt)
+                wl, wr = rand(d, h, dt=dt, scale=0.2), rand(d, h, dt=dt, scale=0.2)
+                spmm = [("int8 forward (rs)", lay8[0]), ("int8 reverse (cs)", rev8),
+                        ("no scales", dataclasses.replace(lay8[0], row_scale=None))]
+                if lay32 is not None:
+                    spmm.append(("f32 weights, reverse (cs)", lay32[1]))
+                for what, lay in spmm:
+                    hold("spmm_banded", f"{dn} {what}", lambda: tsb.spmm_banded(x, lay),
+                         lambda: tsb.spmm_banded_plain(x, lay))
+                r_r = (tbr.residual_rev_compact(g, resid).to(dt), resid.rg_rev)
+                bwd = [("with x", rev8, dict(x=x)), ("without x", rev8, {}),
+                       ("no 1/deg, with x", dataclasses.replace(rev8, col_scale=None), dict(x=x)),
+                       ("residual, with x", resid.banded_rev, dict(x=x, resid=r_r)),
+                       ("residual, without x", resid.banded_rev, dict(resid=r_r))]
+                if lay32 is not None:
+                    bwd.append(("f32 weights, with x", lay32[1], dict(x=x)))
+                for what, lay, kw in bwd:
+                    hold("banded_sage_bwd", f"{dn} {what}",
+                         lambda: tsf.banded_sage_bwd(g, wl, wr, lay, **kw),
+                         lambda: tsf.banded_sage_bwd_plain(g, wl, wr, lay, **kw))
+                xhat = rand(n_pad, h, dt=dt)
+                rstd = (torch.rand((n_pad, 1), generator=gen) + 0.5).to(dev)
+                ln = (rand(h, scale=0.2) + 1.0, rand(h, scale=0.1))
+                lnb = [("1/deg", rev8, None),
+                       ("no 1/deg", dataclasses.replace(rev8, col_scale=None), None),
+                       ("residual", resid.banded_rev, r_r)]
+                for what, lay, rs in lnb:
+                    kw = dict(negative_slope=0.1, resid=rs)
+                    hold("banded_sage_ln_bwd", f"{dn} {what}",
+                         lambda: tsf.banded_sage_ln_bwd(g, xhat, rstd, wl, wr, *ln, lay, x, **kw),
+                         lambda: tsf.banded_sage_ln_bwd_plain(g, xhat, rstd, wl, wr, *ln, lay, x,
+                                                              **kw))
+
+    t0 = time.perf_counter()
+    for tile in SWEEP_TILES:
+        src, dst = make_local_graph(SWEEP_NODES, SWEEP_DEG, reach=tile, seed=SEED)
+        lays = {}
+        for dtype in (np.int8, np.float32):
+            fwd, rev, n_pad = tsb.prepare_banded_mean_aggregate(src, dst, SWEEP_NODES, tile=tile,
+                                                                k=4, dtype=dtype)
+            lays[dtype] = (fwd.to(dev), rev.to(dev))
+        # the residual layout: the same graph and 25 long edges, which its
+        # band of 3 tiles (reach `tile`) leaves out
+        o_dst = np.random.default_rng(SEED).integers(0, SWEEP_NODES, 25)
+        span = 3
+        resid, _ = tbr.prepare_banded_residual_mean_aggregate(
+            np.concatenate([src, (o_dst + SWEEP_NODES // 2) % SWEEP_NODES]),
+            np.concatenate([dst, o_dst]), SWEEP_NODES, tile=tile, k=4, span=span)
+        sweep(f"tile {tile} (span {lays[np.int8][0].s_span}, residual span {span}, "
+              f"{len(resid.r_src)} residual edges)", lays[np.int8], lays[np.float32],
+              resid.to(dev), n_pad)
+    src, dst = scattered_graph(SWEEP_CMAP_NODES, 4, 32, seed=SEED)
+    clay, c_pad = tcm.prepare_cmap_residual_mean_aggregate(src, dst, SWEEP_CMAP_NODES, tile=32,
+                                                           k=2, range_budget=24,
+                                                           resid_frac=0.02)
+    clay = clay.to(dev)
+    sweep(f"cmap tile 32 (c {clay.banded_fwd.s_span})", (clay.banded_fwd, clay.banded_rev), None,
+          clay, c_pad)
+    log(f"ragged sweep: {n_cases} cases within {BANDED_REL} of max|plain|, two launches "
+        f"bit-equal (worst {', '.join(f'{k} {v:.2e}' for k, v in worst.items())}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    return n_cases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -2249,6 +2368,7 @@ def main() -> int:
     del model_sg, md
     torch.cuda.empty_cache()
 
+    check_ragged_sweep(mods, dev)
     resid, pure, n_pad, graph = banded_layouts(mods, dev)
     banded_entries = check_banded_kernels(mods, resid, pure, graph, gen, dev)
     torch.cuda.empty_cache()

@@ -1,5 +1,9 @@
-// The block-level product shared by the banded kernels (spmm_banded.cu,
-// sage_fused_fwd.cu, sage_fused_bwd.cu), and their `cmap` slot tiles.
+// The f32 block-level product of the banded kernels that still run on the
+// CUDA cores (sage_fused_fwd.cu, spmm_dense.cu), the `cmap` slot tiles, and
+// the helpers every graph kernel includes (element loads and stores, the
+// ordered reduction of per-block partials, shape checks, the shared-memory
+// opt-in). spmm_banded.cu and the reverse kernel of sage_fused_bwd.cu run
+// their products on the tensor cores instead (banded_mma.cuh).
 //
 // One block of 256 threads computes an output tile of at most 128 x 128
 // f32 sums, acc = A @ B, walking the depth K in chunks of 32: every thread
@@ -15,8 +19,8 @@
 // memory) and the row reads are free of bank conflicts; the B chunk is read
 // as two float4 per thread and k.
 //
-// This runs the banded products on the CUDA cores' f32 FMA units (67
-// TFLOP/s on the H100), not on the tensor cores; mma/wgmma is later work.
+// block_gemm runs on the f32 FMA units (67 TFLOP/s on the H100), not on the
+// tensor cores: the two kernels that use it are still to be redesigned.
 #pragma once
 
 #include <cuda_bf16.h>

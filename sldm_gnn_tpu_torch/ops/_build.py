@@ -163,14 +163,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p, f, i, f,         # bias, gamma, beta, eps, has_act, slope
         p, i, p, p, p, p, p,      # r_c, r_bf16, rg, out, xhat, rstd, stream
     ]
-    lib.sage_bwd_grid.argtypes = [i, i, i, i, pi]  # nb, D, H, with_dw, -> blocks
+    lib.sage_dw_parts.argtypes = [i, pi]  # rows, -> parts
     lib.sage_bwd_launch.argtypes = [
         p, i, p, p, p,              # a, a_f32, bo, cmap, woff
         p, p, i, i, i, i,           # cs, rstd, nb, s_span, tile, k
         p, i, p, i, i,              # R, r_bf16, O, o_bf16, H
         p, p, i, p, i, p,           # wlt, wrt, D, t_c, tc_bf16, rg
         p, i, p, i, p, i,           # x, x_bf16, dx, dx_bf16, t_out, t_bf16
-        p, i, p, p,                 # partial, blocks, dw, stream
+        p, i, p, p,                 # partial, parts, dw, stream
     ]
     lib.ln_bwd_prologue_launch.argtypes = [
         i, i, p, i, p, i, p, p, p, i,  # nb, tile, g, g_bf16, xhat, xh_bf16, rstd, gamma, beta, H
@@ -208,7 +208,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, p, p, p, i, i, i,      # block_meta, src_local, dst_local, weight, W, ec, tile
         p, p, i, p, p,            # x, y, D, out, stream
     ]
-    for name in ("spmm_banded_launch", "sage_fwd_launch", "sage_bwd_grid", "sage_bwd_launch",
+    for name in ("spmm_banded_launch", "sage_fwd_launch", "sage_dw_parts", "sage_bwd_launch",
                  "ln_bwd_prologue_launch", "spmm_onehot_launch", "spmm_dense_launch",
                  "spmm_gather_launch", "spmm_banded_int8_launch", "quant_rows_launch",
                  "spmm_onehot_int8_launch", "sddmm_launch", "spmm_mk_launch"):

@@ -7,11 +7,12 @@ Port of ``sldm_gnn_tpu/ops/sage_fused.py``. One layer
 
 runs as one forward kernel (:func:`banded_sage_fwd`, with the LayerNorm
 epilogue emitting ``xhat`` and ``rstd``), and its backward as one reverse
-aggregation ``t = A^T g~`` whose epilogue forms ``dx = t @ Wl^T + g~ @
-Wr^T`` and the per-block partial ``dWl = x^T t``, ``dWr = x^T g~``
-(:func:`banded_sage_bwd`; :func:`banded_sage_ln_bwd` first turns the raw
-gradient into ``dy`` with a row-wise prologue kernel). The aggregate and
-``t`` never leave the card's shared memory.
+aggregation ``t = A^T g~`` that goes on to ``dx = t @ Wl^T + g~ @ Wr^T``
+in the same kernel, then a weight-gradient kernel ``dWl = x^T t``, ``dWr
+= x^T g~`` over t written once in bf16 (:func:`banded_sage_bwd`;
+:func:`banded_sage_ln_bwd` first turns the raw gradient into ``dy`` with a
+row-wise prologue kernel). The forward's aggregate never leaves the
+card's shared memory.
 
 Roundings, the TPU kernels' own: the tiles (exact for counts up to 127),
 x, the aggregate before ``@ Wl``, ``g~``, ``dy`` and the weights are
@@ -264,8 +265,8 @@ banded_sage_fwd.launches = 0
 
 def _bwd_launch(lib, dev, blocks_rev, rows, own, rstd, wl, wr, x, resid, dx_dtype, t_out):
     """The reverse kernel of ``csrc/sage_fused_bwd.cu`` (shared by the plain
-    and the LN backward): returns ``(dx, dWl, dWr)`` with ``x``, else
-    ``(t_out, dx)``."""
+    and the LN backward), then with ``x`` its weight-gradient kernel:
+    returns ``(dx, dWl, dWr)`` with ``x``, else ``(t_out, dx)``."""
     import ctypes
 
     from . import _build
@@ -275,13 +276,14 @@ def _bwd_launch(lib, dev, blocks_rev, rows, own, rstd, wl, wr, x, resid, dx_dtyp
     wlt, wrt = _weights_bf16(dev, wl.T, wr.T)
     r_c, rg, r_bf16 = _resid_args(resid, blocks_rev, h, dev)
     bo = blocks_rev.bo.to(torch.int32).contiguous()
-    blocks = ctypes.c_int(0)
-    code = lib.sage_bwd_grid(blocks_rev.num_dst_blocks, d, h, int(x is not None),
-                             ctypes.byref(blocks))
-    _build.check(lib, code, f"sage_bwd grid (D={d}, H={h})")
-    p = blocks.value
     dx = torch.empty((n, d), device=dev, dtype=dx_dtype)
+    p = 0
     if x is not None:
+        parts = ctypes.c_int(0)
+        _build.check(lib, lib.sage_dw_parts(n, ctypes.byref(parts)), f"sage_dw parts (rows={n})")
+        p = parts.value
+        # t in bf16 for the weight-gradient kernel
+        t_out = torch.empty((n, h), device=dev, dtype=BF16)
         partial = torch.empty((p, 2, d, h), device=dev, dtype=torch.float32)
         dw = torch.empty((2, d, h), device=dev, dtype=torch.float32)
     else:

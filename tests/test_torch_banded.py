@@ -46,6 +46,11 @@ AGG_GRAD_TOL = 1e-4
 KERNEL_REL = 1e-2
 
 N, TILE, K, D, H = 2000, 64, 4, 16, 24
+# ragged shapes (tile, D, H) of chip_smoke.py's sweep of the tensor-core
+# kernels (spmm_banded, the fused backward): tiles 32 and 128 beside the
+# suite's 64; widths that are not multiples of 16 or 8, D != H, the widest
+SWEEP = {"t32-d40-h4": (32, 40, 4), "t128-d4-h40": (128, 4, 40),
+         "t128-d128-h96": (128, 128, 96)}
 
 
 def _banded_graph(rng, n=N, deg=6, reach=90):
@@ -84,19 +89,21 @@ def _max_rel(got, want):
     return np.abs(got - want).max() / (np.abs(want).max() + 1e-12)
 
 
-def _setup(rng, *, d=D, h=H):
+def _setup(rng, *, d=D, h=H, tile=TILE):
     src, dst = _banded_graph(rng)
-    fwd, rev, n_pad = tsb.prepare_banded_mean_aggregate(src, dst, N, tile=TILE, k=K)
-    jf, jr, _ = jsb.prepare_banded_mean_aggregate(src, dst, N, tile=TILE, k=K)
+    fwd, rev, n_pad = tsb.prepare_banded_mean_aggregate(src, dst, N, tile=tile, k=K)
+    jf, jr, _ = jsb.prepare_banded_mean_aggregate(src, dst, N, tile=tile, k=K)
     jf, jr = jax.tree.map(jnp.asarray, (jf, jr))
     return fwd, rev, jf, jr, _setup_arrays(n_pad, d, h)
 
 
-def _resid_setup(rng):
+def _resid_setup(rng, *, d=D, h=H, tile=TILE):
     src, dst = _near_banded_graph(rng)
-    lay, n_pad = tbr.prepare_banded_residual_mean_aggregate(src, dst, N, tile=TILE, k=K, span=4)
-    jl, _ = jbr.prepare_banded_residual_mean_aggregate(src, dst, N, tile=TILE, k=K, span=4)
-    return lay, jax.tree.map(jnp.asarray, jl), _setup_arrays(n_pad, D, H)
+    span = 4 * TILE // tile  # the suite's band, in tiles of this size
+    lay, n_pad = tbr.prepare_banded_residual_mean_aggregate(src, dst, N, tile=tile, k=K,
+                                                            span=span)
+    jl, _ = jbr.prepare_banded_residual_mean_aggregate(src, dst, N, tile=tile, k=K, span=span)
+    return lay, jax.tree.map(jnp.asarray, jl), _setup_arrays(n_pad, d, h)
 
 
 def _setup_arrays(n_pad, d, h):
@@ -320,15 +327,22 @@ def test_residual_ln_xla_matches_jax(rng, slope):
 # ------------------------------------------------------------ plain kernels
 
 
-@pytest.mark.parametrize("direction,dtype", [("fwd", np.int8), ("rev", np.int8),
-                                             ("fwd", np.float32)])
+_SPMM_CASES = [("fwd", np.int8, None), ("rev", np.int8, None), ("fwd", np.float32, None),
+               ("fwd", np.int8, "t32-d40-h4"), ("rev", np.int8, "t128-d4-h40"),
+               ("fwd", np.float32, "t128-d128-h96"), ("rev", np.float32, "t32-d40-h4")]
+
+
+@pytest.mark.parametrize("direction,dtype,shape", _SPMM_CASES,
+                         ids=[f"{c[0]}-{np.dtype(c[1]).name}" + (f"-{c[2]}" if c[2] else "")
+                              for c in _SPMM_CASES])
 @pytest.mark.parametrize("xdt", [np.float32, "bf16"])
-def test_spmm_banded_plain_matches_pallas(rng, direction, dtype, xdt):
+def test_spmm_banded_plain_matches_pallas(rng, direction, dtype, shape, xdt):
+    tile, d, _ = SWEEP[shape] if shape else (TILE, D, H)
     src, dst = _banded_graph(rng)
-    tf, tr, n_pad = tsb.prepare_banded_mean_aggregate(src, dst, N, tile=TILE, k=K, dtype=dtype)
-    jf, jr, _ = jsb.prepare_banded_mean_aggregate(src, dst, N, tile=TILE, k=K, dtype=dtype)
+    tf, tr, n_pad = tsb.prepare_banded_mean_aggregate(src, dst, N, tile=tile, k=K, dtype=dtype)
+    jf, jr, _ = jsb.prepare_banded_mean_aggregate(src, dst, N, tile=tile, k=K, dtype=dtype)
     tb, jb = (tf, jf) if direction == "fwd" else (tr, jr)
-    x = _setup_arrays(n_pad, D, H)["x"]
+    x = _setup_arrays(n_pad, d, H)["x"]
     xt, xj = _t(x), jnp.asarray(x)
     if xdt == "bf16":
         xt, xj = xt.to(torch.bfloat16), xj.astype(jnp.bfloat16)
@@ -383,16 +397,22 @@ def test_fused_fwd_plain_with_residual_matches_pallas(rng, xdt, ln):
         assert _max_rel(g.float().numpy(), np.asarray(w, np.float32)) < KERNEL_REL
 
 
+_BWD_CASES = [(False, None), (True, None), (False, "t32-d40-h4"), (False, "t128-d4-h40"),
+              (False, "t128-d128-h96"), (True, "t32-d40-h4")]
+
+
 @pytest.mark.parametrize("with_x", [True, False])
-@pytest.mark.parametrize("resid", [False, True])
-def test_fused_bwd_plain_matches_pallas(rng, with_x, resid):
+@pytest.mark.parametrize("resid,shape", _BWD_CASES,
+                         ids=[str(c[0]) + (f"-{c[1]}" if c[1] else "") for c in _BWD_CASES])
+def test_fused_bwd_plain_matches_pallas(rng, with_x, resid, shape):
+    tile, d, h = SWEEP[shape] if shape else (TILE, D, H)
     if resid:
-        lay, jl, a = _resid_setup(rng)
+        lay, jl, a = _resid_setup(rng, d=d, h=h, tile=tile)
         rev, jrev = lay.banded_rev, jl.banded_rev
         tr = jbr.residual_rev_compact(jnp.asarray(a["t"]), jl)
         rt, rj = (_t(np.asarray(tr)), lay.rg_rev), (tr, jl.rg_rev)
     else:
-        _, rev, _, jrev, a = _setup(rng)
+        _, rev, _, jrev, a = _setup(rng, d=d, h=h, tile=tile)
         rt = rj = None
     gq = a["t"]
     got = tsf.banded_sage_bwd(_t(gq), _t(a["wl"]), _t(a["wr"]), rev,
@@ -406,14 +426,21 @@ def test_fused_bwd_plain_matches_pallas(rng, with_x, resid):
         assert g.shape == w.shape and _max_rel(g.numpy(), w) < KERNEL_REL
 
 
-@pytest.mark.parametrize("slope,resid", [(0.0, False), (0.1, False), (None, False),
-                                         (0.0, True)])
-def test_ln_bwd_plain_matches_pallas(rng, slope, resid):
+_LN_BWD_CASES = [(0.0, False, None), (0.1, False, None), (None, False, None), (0.0, True, None),
+                 (0.1, False, "t32-d40-h4"), (0.0, False, "t128-d4-h40"),
+                 (None, False, "t128-d128-h96"), (0.0, True, "t32-d40-h4")]
+
+
+@pytest.mark.parametrize("slope,resid,shape", _LN_BWD_CASES,
+                         ids=[f"{c[0]}-{c[1]}" + (f"-{c[2]}" if c[2] else "")
+                              for c in _LN_BWD_CASES])
+def test_ln_bwd_plain_matches_pallas(rng, slope, resid, shape):
+    tile, d, h = SWEEP[shape] if shape else (TILE, D, H)
     if resid:
-        lay, jl, a = _resid_setup(rng)
+        lay, jl, a = _resid_setup(rng, d=d, h=h, tile=tile)
         rev, jrev, fwd_j = lay.banded_rev, jl.banded_rev, jl.banded_fwd
     else:
-        _, rev, fwd_j, jrev, a = _setup(rng)
+        _, rev, fwd_j, jrev, a = _setup(rng, d=d, h=h, tile=tile)
     ln = (jnp.asarray(a["gamma"]), jnp.asarray(a["beta"]))
     _, xhat, rstd = jsf.banded_sage_fwd_pallas(
         jnp.asarray(a["x"]), jnp.asarray(a["wl"]), jnp.asarray(a["wr"]), jnp.asarray(a["b"]),
@@ -425,7 +452,7 @@ def test_ln_bwd_plain_matches_pallas(rng, slope, resid):
                                           slope)
         kt = jl.group_rows
         t_r = jax.ops.segment_sum(dy_r * jl.r_w_rev[:, None], jl.r_row_rev,
-                                  num_segments=jl.m_rev * kt).reshape(jl.m_rev, kt, H)
+                                  num_segments=jl.m_rev * kt).reshape(jl.m_rev, kt, h)
         rj, rt = (t_r, jl.rg_rev), (_t(np.asarray(t_r)), lay.rg_rev)
     else:
         rj = rt = None

@@ -39,6 +39,10 @@ from sldm_gnn_tpu_torch.ops.spmm_cmap import prepare_cmap_residual_mean_aggregat
 # plain kernel versions vs the interpret kernels, max|err| / max|out|: the
 # same bf16 roundings, f32 sums in another order (tests/test_torch_banded.py)
 KERNEL_REL = 1e-2
+# ragged shapes of chip_smoke.py's sweep of the tensor-core kernels on a
+# cmap layout: tile 64 beside the suite's 32, widths that are not multiples
+# of 16 or 8, D != H (nodes, tile, D, H)
+SWEEP = {"t64-d40-h4": (1024, 64, 40, 4), "t32-d4-h40": (512, 32, 4, 40)}
 BLOCK_FIELDS = ("a", "bo", "woff", "off", "cmap", "row_scale", "col_scale")
 RESID_FIELDS = ("r_src", "r_row_fwd", "r_w", "r_dst", "r_row_rev", "r_w_rev", "rg_fwd",
                 "rg_rev")
@@ -138,11 +142,17 @@ def test_exact_mean_and_transpose(rng, n):
     np.testing.assert_allclose(g.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("direction", ["banded_fwd", "banded_rev"])
+_SPMM_CASES = [("banded_fwd", None), ("banded_rev", None), ("banded_fwd", "t64-d40-h4"),
+               ("banded_rev", "t64-d40-h4"), ("banded_fwd", "t32-d4-h40")]
+
+
+@pytest.mark.parametrize("direction,shape", _SPMM_CASES,
+                         ids=[c[0] + (f"-{c[1]}" if c[1] else "") for c in _SPMM_CASES])
 @pytest.mark.parametrize("xdt", [np.float32, "bf16"])
-def test_spmm_banded_plain_matches_pallas(rng, direction, xdt):
-    _, _, tl, jl, n_pad = _prepare(rng)
-    x = rng.standard_normal((n_pad, 16)).astype(np.float32)
+def test_spmm_banded_plain_matches_pallas(rng, direction, shape, xdt):
+    n, tile, d, _ = SWEEP[shape] if shape else (512, 32, 16, 16)
+    _, _, tl, jl, n_pad = _prepare(rng, n=n, tile=tile)
+    x = rng.standard_normal((n_pad, d)).astype(np.float32)
     xt, xj = _t(x), jnp.asarray(x)
     if xdt == "bf16":
         xt, xj = xt.to(torch.bfloat16), xj.astype(jnp.bfloat16)
@@ -195,14 +205,20 @@ def test_fused_layers_match_interpret_kernels(rng, mode):
         assert np.abs(t.grad.numpy() - w).max() / (np.abs(w).max() + 1e-9) < 5e-2, name
 
 
-@pytest.mark.parametrize("with_x", [True, False])
-def test_fused_kernels_plain_match_pallas(rng, with_x):
+_FUSED_CASES = [(True, None), (False, None), (True, "t64-d40-h4"), (False, "t64-d40-h4"),
+                (True, "t32-d4-h40")]
+
+
+@pytest.mark.parametrize("with_x,shape", _FUSED_CASES,
+                         ids=[str(c[0]) + (f"-{c[1]}" if c[1] else "") for c in _FUSED_CASES])
+def test_fused_kernels_plain_match_pallas(rng, with_x, shape):
     """Each fused kernel's plain version on the cmap layouts against its
     Pallas kernel in interpret mode, with the compact residual: the forward
     (with LN), the backward (with and without x) and the LN backward."""
-    _, _, tl, jl, n_pad = _prepare(rng)
-    a = _fused_args(rng, n_pad)
-    x, g = jnp.asarray(a["x"]), jnp.asarray(rng.standard_normal((n_pad, 16)).astype(np.float32))
+    n, tile, d, h = SWEEP[shape] if shape else (512, 32, 12, 16)
+    _, _, tl, jl, n_pad = _prepare(rng, n=n, tile=tile)
+    a = _fused_args(rng, n_pad, d=d, h=h)
+    x, g = jnp.asarray(a["x"]), jnp.asarray(rng.standard_normal((n_pad, h)).astype(np.float32))
     ln = (jnp.asarray(a["gamma"]), jnp.asarray(a["beta"]))
     w = [jnp.asarray(a[k]) for k in ("wl", "wr", "b")]
     wt = [_t(a[k]) for k in ("wl", "wr", "b")]
