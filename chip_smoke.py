@@ -65,7 +65,14 @@ launch count set to 0 just before a path and read just after it:
     ``banded_sage_ln_bwd``) over ragged shapes on a small graph: tiles 32,
     64 and 128, widths (D, H) of (40, 4), (4, 40) and (128, 96), f32 and
     bf16, int8 counts and f32 weights, with and without scales, x and the
-    residual, and a cmap layout; each against its plain version.
+    residual, and a cmap layout; each against its plain version. Then the
+    dense SpMM over the same tiles, D 4, 40, 96 and 128, int8, f32 and
+    bf16 tiles, both directions, with and without a row scale, and layouts
+    of 1, 5 and 70 slots a block;
+  * after the GRU checks, a sweep of ``gru_fwd`` (h_last and seq) and
+    ``gru_fwd_sg`` at N of 1 to 19 558, H of 16, 40, 96, 128 and each D's
+    widest, D of 6, 96 and 128, against their plain versions, with the
+    kernel each width routes to (tensor cores or FMA) printed.
 
 It prints its findings, a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -260,6 +267,17 @@ def gru_fwd_cost(n: int, d: int, h: int) -> tuple[float, float]:
     return nbytes, 2.0 * n * FRAMES * 3 * h * (d + h)
 
 
+def gru_chain_floor_ms(d: int, h: int) -> float:
+    """The least time of the forward's FRAMES dependent steps in the
+    tensor-core kernel's design: one SM takes a 64-row tile, and each step's
+    carry product (64 x Hp by Hp x 3Hp, Hp = H padded to 32) cannot start
+    before the last step's carry exists; at one SM's share of the bf16 peak.
+    The input product, gate math and barrier come on top."""
+    hp = -(-h // 32) * 32
+    sm_peak = PEAK_BF16_FLOP_S / torch.cuda.get_device_properties(0).multi_processor_count
+    return FRAMES * 2.0 * 64 * 3 * hp * hp / sm_peak * 1e3
+
+
 def knn_cost(v: int) -> tuple[float, float]:
     nbytes = v * 2 * 4 + SEGMENTS * 2 * 4 + v * K * 8
     return nbytes, 5.0 * v * SEGMENTS
@@ -332,13 +350,16 @@ def check_gru(gru_cuda, gen, rng, dev) -> dict:
     ms, _ = timed(lambda: gru_cuda.gru_fwd(x, *w), iters=20)
     xs = x[:32].contiguous()  # a served window: 32 node rows (power-of-two padding)
     serve_ms, serve_host = timed(lambda: gru_cuda.gru_fwd(xs, *w), iters=200)
+    serve_plain_ms, _ = timed(lambda: gru_cuda.gru_fwd_plain(xs, *w), iters=5, warmup=1)
     serve_bound_ms, serve_bound_by = bound(*gru_fwd_cost(32, FEATURES, HIDDEN), PEAK_BF16_FLOP_S)
+    chain_ms = gru_chain_floor_ms(FEATURES, HIDDEN)
     lib32 = torch.nn.GRU(FEATURES, HIDDEN, batch_first=True).to(dev)
     with torch.inference_mode():
         serve_library_ms, _ = timed(lambda: lib32(xs), iters=200)
     log(f"gru_fwd at N=32 (one served window): {serve_ms:.4f} ms per call on the card, "
-        f"{serve_host:.4f} ms to issue it on the host; bound {serve_bound_ms:.6f} ms "
-        f"({serve_bound_by}); nn.GRU f32 at N=32 {serve_library_ms:.4f} ms")
+        f"{serve_host:.4f} ms to issue it on the host; plain {serve_plain_ms:.4f} ms; bound "
+        f"{serve_bound_ms:.6f} ms ({serve_bound_by}); the design's chain floor {chain_ms:.4f} ms; "
+        f"nn.GRU f32 at N=32 {serve_library_ms:.4f} ms")
     plain_ms, _ = timed(lambda: gru_cuda.gru_fwd_plain(x, *w), iters=3, warmup=1)
     # yardstick: cuDNN's GRU in f32 (TF32 off); the same call in bf16 is
     # printed beside it
@@ -356,7 +377,8 @@ def check_gru(gru_cuda, gen, rng, dev) -> dict:
                 shape=f"N={n} T={FRAMES} D={FEATURES} H={HIDDEN} h_last",
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, serve_shape_ms=serve_ms,
-                serve_shape_bound_ms=serve_bound_ms, serve_shape_library_ms=serve_library_ms)
+                serve_shape_plain_ms=serve_plain_ms, serve_shape_bound_ms=serve_bound_ms,
+                serve_shape_library_ms=serve_library_ms)
 
 
 def check_knn(knn_ops, gen, rng, dev) -> dict:
@@ -395,11 +417,13 @@ def check_knn(knn_ops, gen, rng, dev) -> dict:
     log(f"knn_topk V={v}: host {host:.4f} ms to issue one call")
     ps = pts[:32].contiguous()
     serve_ms, serve_host = timed(lambda: knn_ops.knn_topk_fused(ps, cts, K), iters=200)
+    serve_plain_ms, _ = timed(lambda: knn_ops.knn_topk_plain(ps, cts, K), iters=50)
     serve_bound_ms, serve_bound_by = bound(*knn_cost(32), PEAK_F32_FLOP_S)
     serve_library_ms, _ = timed(
         lambda: torch.topk(torch.cdist(ps, cts), K, dim=1, largest=False), iters=200)
     log(f"knn_topk at V=32 (one served window): {serve_ms:.4f} ms per call on the card, "
-        f"{serve_host:.4f} ms to issue it on the host; bound {serve_bound_ms:.7f} ms "
+        f"{serve_host:.4f} ms to issue it on the host; plain {serve_plain_ms:.4f} ms; bound "
+        f"{serve_bound_ms:.7f} ms "
         f"({serve_bound_by}); cdist+topk at V=32 {serve_library_ms:.4f} ms")
     plain_ms, _ = timed(lambda: knn_ops.knn_topk_plain(pts, cts, K), iters=10)
     library_ms, _ = timed(lambda: torch.topk(torch.cdist(pts, cts), K, dim=1, largest=False),
@@ -412,7 +436,8 @@ def check_knn(knn_ops, gen, rng, dev) -> dict:
                 shape=f"V={v} S={SEGMENTS} k={K}",
                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, serve_shape_ms=serve_ms,
-                serve_shape_bound_ms=serve_bound_ms, serve_shape_library_ms=serve_library_ms)
+                serve_shape_plain_ms=serve_plain_ms, serve_shape_bound_ms=serve_bound_ms,
+                serve_shape_library_ms=serve_library_ms)
 
 
 def gates_from_hs(gru_cuda, x, hs, w_ih, b_ih, w_hh, b_hh) -> torch.Tensor:
@@ -647,6 +672,90 @@ def check_gru_widths(gru_cuda, gen, dev) -> None:
                    f"memory up to {widest(bwd_takes('gru_bwd_grid', d, 1), 341)}), gru_bwd_sg "
                    f"{widest(bwd_takes('gru_bwd_sg_grid', d, -1), 341)}")
     log("widest H each GRU kernel takes on this card: " + "; ".join(out))
+
+
+# the forward kernels' ragged sweep: row counts around the tensor-core
+# kernel's 64-row tile and the flagship batch, hidden widths padded to 32 by
+# it (20, 33 and 100 are not multiples of 8: their outputs are stored by
+# each thread, 33's element by element), and each D's widest, which the FMA
+# kernel takes; D of 6 (the features) and 96, 128 (a stack's upper layer)
+GRU_SWEEP_N = (1, 16, 32, 37, 64, 65, 19558)
+GRU_SWEEP_H = (16, 20, 33, 40, 96, 100, 128)
+GRU_SWEEP_D = (6, 96, 128)
+# the widest H the FMA kernel took at each D before the tensor-core kernel
+# came (PERF.md's limits table); none of them may stop working
+GRU_FMA_WIDEST = {6: 186, 96: 146, 128: 134}
+
+
+def route_ranges(route_of, d: int, hi: int = 512) -> str:
+    """'H 1-128 <route>, 129-186 <route>, ...' for input width d."""
+    out, start = [], 1
+    for h in range(2, hi + 2):
+        if h > hi or route_of(d, h) != route_of(d, start):
+            out.append(f"{start}-{h - 1} {route_of(d, start)}")
+            start = h
+    return ", ".join(out)
+
+
+def check_gru_sweep(gru_cuda, dev) -> int:
+    """gru_fwd (h_last and seq) and gru_fwd_sg against their plain versions
+    at GRU_ATOL (h_last, hs, gates) on every case of GRU_SWEEP_N x
+    (GRU_SWEEP_H and the widest H) x GRU_SWEEP_D, FRAMES frames; two launches
+    of each bit-equal, the store-gates hs bit-equal to the plain instance's,
+    h_last equal to hs's last frame. Prints the kernel each width routes to
+    (csrc/gru_fwd.cu's rule, gru_cuda.gru_fwd_route), checks that every H up
+    to 128 takes the tensor cores and that no width the FMA kernel took
+    before (GRU_FMA_WIDEST) has stopped working, and returns the number of
+    cases held."""
+    route = gru_cuda.gru_fwd_route
+    widest = {}
+    for d in GRU_SWEEP_D:
+        routes = {h: route(d, h) for h in range(1, 513)}
+        widest[d] = max(h for h, r in routes.items() if r >= 0)
+        log(f"gru_fwd / gru_fwd_sg route at D={d}: H " + route_ranges(
+            lambda dd, h: gru_cuda.FWD_ROUTES[routes[h]], d))
+        if any(routes[h] != 1 for h in range(1, 129)) or widest[d] < GRU_FMA_WIDEST[d] or any(
+                routes[h] < 0 for h in range(1, widest[d] + 1)):
+            raise AssertionError(f"gru_fwd route at D={d}: H <= 128 not all on the tensor cores, "
+                                 f"or the widest H {widest[d]} below {GRU_FMA_WIDEST[d]}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    wgen = torch.Generator().manual_seed(SEED)
+    worst = dict.fromkeys(("h_last", "hs", "gates"), 0.0)
+    n_cases = 0
+    t0 = time.perf_counter()
+    for d in GRU_SWEEP_D:
+        xall = torch.randn((max(GRU_SWEEP_N), FRAMES, d), generator=gen, device=dev)
+        for h in GRU_SWEEP_H + (widest[d],):
+            w = gru_weights(wgen, d, h, dev)
+            for n in GRU_SWEEP_N:
+                x = xall[:n]
+                h_k, h_k2 = (gru_cuda.gru_fwd(x, *w) for _ in range(2))
+                hs_k, hs_k2 = (gru_cuda.gru_fwd(x, *w, seq=True) for _ in range(2))
+                (sg_hs, sg_g), (sg_hs2, sg_g2) = (gru_cuda.gru_fwd_sg(x, *w) for _ in range(2))
+                hs_p, g_p = gru_cuda.gru_fwd_sg_plain(x, *w)
+                torch.cuda.synchronize()
+                errs = {"h_last": (h_k - hs_p[-1].float()).abs().max().item(),
+                        "hs": (hs_k.float() - hs_p.float()).abs().max().item(),
+                        "gates": (sg_g.float() - g_p.float()).abs().max().item()}
+                stable = (torch.equal(h_k, h_k2) and torch.equal(hs_k, hs_k2)
+                          and torch.equal(sg_hs, sg_hs2) and torch.equal(sg_g, sg_g2))
+                same = torch.equal(sg_hs, hs_k) and torch.equal(h_k, hs_k[-1].float())
+                finite = all(torch.isfinite(v.float()).all() for v in (h_k, hs_k, sg_g))
+                if max(errs.values()) > GRU_ATOL or not (stable and same and finite):
+                    raise AssertionError(
+                        f"gru sweep N={n} D={d} H={h} ({gru_cuda.FWD_ROUTES[route(d, h)]}): "
+                        f"max_abs_err {errs} (tol {GRU_ATOL}), two launches bit-equal {stable}, "
+                        f"sg hs = seq hs and h_last = hs[-1] {same}, finite {finite}")
+                for k, v in errs.items():
+                    worst[k] = max(worst[k], v)
+                n_cases += 1
+        del xall
+    log(f"gru sweep: {n_cases} cases (N {GRU_SWEEP_N}, H {GRU_SWEEP_H} + the widest, D "
+        f"{GRU_SWEEP_D}) within {GRU_ATOL} of the plain versions, worst "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; two launches bit-equal, sg hs bit-equal to gru_fwd's; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return n_cases
 
 
 def write_snapshot(path: Path, gru_impl: str, knn_impl: str) -> None:
@@ -969,10 +1078,12 @@ def profile_steps(run_step, label: str, keys: tuple[str, ...], steps: int = 3) -
         f"per step by kernel: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
 
 
-GRU_KERNEL_KEYS = ("gru_fwd_kernel", "gru_bwd_kernel", "gru_bwd_reduce", "knn_topk_kernel")
-BANDED_KERNEL_KEYS = ("spmm_banded_kernel", "sage_fwd_kernel", "sage_bwd_kernel",
+GRU_KERNEL_KEYS = ("gru_fwd_tc_kernel", "gru_fwd_fma_kernel", "gru_bwd_kernel", "gru_bwd_reduce",
+                   "knn_topk_kernel")
+# slot_spmm_kernel: spmm_banded's and spmm_dense's kernel (csrc/slot_spmm.cuh)
+BANDED_KERNEL_KEYS = ("slot_spmm_kernel", "sage_fwd_kernel", "sage_bwd_kernel",
                       "sage_dw_kernel", "ln_bwd_prologue_kernel", "reduce_partials_kernel")
-LAYOUT_KERNEL_KEYS = ("spmm_onehot_kernel", "spmm_dense_kernel", "spmm_gather_kernel")
+LAYOUT_KERNEL_KEYS = ("spmm_onehot_kernel", "slot_spmm_kernel", "spmm_gather_kernel")
 
 
 def check_train_to_serve(mods: dict, model, md, tmp: Path, dev) -> None:
@@ -2310,6 +2421,84 @@ def check_ragged_sweep(mods: dict, dev) -> int:
     return n_cases
 
 
+DENSE_SWEEP_WIDTHS = (4, 40, 96, 128)
+
+
+def check_dense_sweep(mods: dict, dev) -> int:
+    """spmm_dense against its plain version on ragged shapes: tiles 32, 64
+    and 128 of a small local graph, D in DENSE_SWEEP_WIDTHS, int8, f32 and
+    bf16 tiles, f32 x (AGG_F32_REL of max|plain|) and bf16 x (BANDED_REL),
+    with a row scale and without, both directions; then layouts of s_max 1
+    (block-diagonal), 5 (bench.py's reach 256 at tile 128) and 70 (tile 32,
+    one destination block fed by 70 source blocks). Two launches bit-equal
+    every time. Returns the number of cases held."""
+    tsd = mods["spmm_dense"]
+    gen = torch.Generator().manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    worst = {"f32": 0.0, "bf16": 0.0}
+    n_cases = 0
+
+    def hold(what, lay, x):
+        nonlocal n_cases
+        got, again, want = (tsd.spmm_dense(x, lay), tsd.spmm_dense(x, lay),
+                            tsd.spmm_dense_plain(x, lay))
+        torch.cuda.synchronize()
+        rel = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max().clamp_min(1e-30)).item()
+        stable = torch.equal(got, again)
+        key = "bf16" if x.dtype == torch.bfloat16 else "f32"
+        tol = BANDED_REL if key == "bf16" else AGG_F32_REL
+        if rel > tol or not stable or not torch.isfinite(got).all():
+            raise AssertionError(f"dense sweep: {what} {key} x: max|err|/max|plain| {rel:.3e} "
+                                 f"(tol {tol}), two launches bit-equal {stable}")
+        worst[key] = max(worst[key], rel)
+        n_cases += 1
+
+    def cases(tag, lay):
+        lay = lay.to(dev)
+        n_pad = lay.num_dst_blocks * lay.tile
+        rs = (torch.rand((n_pad, 1), generator=gen) * 0.75 + 0.25).to(dev)
+        with_rs = lay if lay.row_scale is not None else dataclasses.replace(lay, row_scale=rs)
+        for d in DENSE_SWEEP_WIDTHS:
+            x = torch.randn((n_pad, d), generator=gen).to(dev)
+            for lv, rtag in ((with_rs, "row scale"), (dataclasses.replace(lay, row_scale=None),
+                                                       "no row scale")):
+                for xv in (x, x.to(torch.bfloat16)):
+                    hold(f"{tag} D {d} {rtag}", lv, xv)
+
+    def both(tag, src, dst, n, tile, kinds=("int8", "f32", "bf16")):
+        for kind in kinds:
+            fwd, rev, _ = tsd.prepare_dense_mean_aggregate(
+                src, dst, n, tile=tile, dtype=np.int8 if kind == "int8" else np.float32)
+            for lay, dn in ((fwd, "forward"), (rev, "reverse")):
+                if kind == "bf16":
+                    lay = dataclasses.replace(lay, a=lay.a.to(torch.bfloat16))
+                cases(f"{tag} {kind} tiles {dn} (s_max {lay.s_max})", lay)
+
+    t0 = time.perf_counter()
+    for tile in SWEEP_TILES:
+        src, dst = make_local_graph(SWEEP_NODES, SWEEP_DEG, reach=tile, seed=SEED)
+        both(f"tile {tile}", src, dst, SWEEP_NODES, tile)
+    # s_max 1: every edge inside its block
+    dst = rng.integers(0, SWEEP_NODES, SWEEP_NODES * SWEEP_DEG)
+    src = np.minimum(dst // BANDED_TILE * BANDED_TILE + rng.integers(0, BANDED_TILE, len(dst)),
+                     SWEEP_NODES - 1)
+    both("block-diagonal, tile 128", src, dst, SWEEP_NODES, BANDED_TILE, ("int8",))
+    src, dst = make_local_graph(SWEEP_NODES, SWEEP_DEG, reach=BENCH_REACH, seed=SEED)
+    both("reach 256, tile 128", src, dst, SWEEP_NODES, BANDED_TILE, ("int8",))
+    # s_max 70: block 0 fed by 70 source blocks of 32
+    nsrc, tile = 70, 32
+    n = (nsrc + 1) * tile
+    src = np.concatenate([np.arange(1, nsrc + 1) * tile + rng.integers(0, tile, nsrc),
+                          rng.integers(0, n, 4 * n)])
+    dst = np.concatenate([rng.integers(0, tile, nsrc), rng.integers(0, n, 4 * n)])
+    both("70 sources, tile 32", src, dst, n, tile, ("int8", "bf16"))
+    log(f"dense sweep: {n_cases} cases within {AGG_F32_REL} (f32 x) / {BANDED_REL} (bf16 x) of "
+        f"max|plain|, two launches bit-equal (worst f32 {worst['f32']:.2e}, bf16 "
+        f"{worst['bf16']:.2e}), {time.perf_counter() - t0:.1f} s")
+    return n_cases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
@@ -2343,6 +2532,7 @@ def main() -> int:
         e["path"] = "serve"
     train_entries = check_gru_training_kernels(gru_cuda, gen, dev)
     check_gru_widths(gru_cuda, gen, dev)
+    check_gru_sweep(gru_cuda, dev)
     torch.cuda.empty_cache()
 
     mods = {"gru_cuda": gru_cuda, "knn_ops": knn_ops, "spmm_banded": spmm_banded,
@@ -2369,6 +2559,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     check_ragged_sweep(mods, dev)
+    check_dense_sweep(mods, dev)
     resid, pure, n_pad, graph = banded_layouts(mods, dev)
     banded_entries = check_banded_kernels(mods, resid, pure, graph, gen, dev)
     torch.cuda.empty_cache()

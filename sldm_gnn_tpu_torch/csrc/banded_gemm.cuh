@@ -1,9 +1,9 @@
-// The f32 block-level product of the banded kernels that still run on the
-// CUDA cores (sage_fused_fwd.cu, spmm_dense.cu), the `cmap` slot tiles, and
-// the helpers every graph kernel includes (element loads and stores, the
-// ordered reduction of per-block partials, shape checks, the shared-memory
-// opt-in). spmm_banded.cu and the reverse kernel of sage_fused_bwd.cu run
-// their products on the tensor cores instead (banded_mma.cuh).
+// The f32 block-level product of the one banded kernel that still runs on
+// the CUDA cores (sage_fused_fwd.cu), the `cmap` slot tiles, and the helpers
+// every graph kernel includes (element loads and stores, the ordered
+// reduction of per-block partials, shape checks, the shared-memory opt-in).
+// spmm_banded.cu, spmm_dense.cu and the reverse kernel of sage_fused_bwd.cu
+// run their products on the tensor cores instead (banded_mma.cuh).
 //
 // One block of 256 threads computes an output tile of at most 128 x 128
 // f32 sums, acc = A @ B, walking the depth K in chunks of 32: every thread
@@ -20,7 +20,7 @@
 // as two float4 per thread and k.
 //
 // block_gemm runs on the f32 FMA units (67 TFLOP/s on the H100), not on the
-// tensor cores: the two kernels that use it are still to be redesigned.
+// tensor cores: the fused forward that uses it is still to be redesigned.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,5 +1,6 @@
-// The tensor-core slot loop shared by spmm_banded.cu and the reverse kernel
-// of sage_fused_bwd.cu, and the PTX building blocks they use.
+// The tensor-core slot loop shared by the SpMM kernel of slot_spmm.cuh
+// (spmm_banded.cu, spmm_dense.cu) and the reverse kernel of
+// sage_fused_bwd.cu, and the PTX building blocks they use.
 //
 // A block of two warpgroups accumulates an output tile of at most 128 x 128
 // f32 sums, acc = sum_s A[b, s] @ B[src(b, s)], with wgmma m64n128k16 on
@@ -9,17 +10,18 @@
 //   * a ring of NST stages in shared memory is filled by TMA NST - 1 chunks
 //     ahead of the products: one thread starts a chunk's few tensor and bulk
 //     copies, and an mbarrier a stage counts their bytes. A stage holds the
-//     count tile's 32 columns (int8 with TMA's 32-byte swizzle, or f32
-//     weights with its 128-byte one), B's 32 rows (bf16, or the raw rows when
-//     B needs a pass) and the 32 source rows' scales cs and rstd. (16-byte
-//     cp.async copies, started by every thread, kept the warps waiting on
-//     the load/store queue longer than the products took.)
+//     count tile's 32 columns (int8 with TMA's 32-byte swizzle, bf16 with its
+//     64-byte one, or f32 weights with its 128-byte one), B's 32 rows (bf16,
+//     or the raw rows when B needs a pass) and the 32 source rows' scales cs
+//     and rstd. (16-byte cp.async copies, started by every thread, kept the
+//     warps waiting on the load/store queue longer than the products took.)
 //   * A's fragments are built in registers (wgmma takes A from registers):
 //     the conversion to bf16 and the column scale of the reverse kernels
 //     (bf16(bf16(A) * bf16(cs)), or bf16(A * rstd * cs) under LayerNorm)
 //     happen there, per element, as the TPU kernels fold them. Counts become
 //     bf16 by byte permutes and one f32 add (exact for every int8) rather
-//     than by the conversion unit, whose quarter rate would bound the loop.
+//     than by the conversion unit, whose quarter rate would bound the loop;
+//     bf16 tiles are read as they are.
 //   * B is read by wgmma from shared memory through a descriptor: two
 //     64-column halves of 32 rows of 128 bytes, each row's 16-byte pieces
 //     XOR-swizzled by the row (wgmma's 128-byte swizzle, swz_h; N
@@ -32,9 +34,12 @@
 //     the same kernel.
 // A persistent block walks destination blocks blockIdx.x, + gridDim.x, ...
 // as one stream of chunks, so the next block's copies are in flight while
-// the caller's epilogue runs. Each block's source tiles (bo[b] + s, or the
-// clamped woff[b / k] + cmap[b * s_span + s]) are looked up once, a chunk
-// ahead of their first copy, into a table in shared memory.
+// the caller's epilogue runs. Slot s of block b reads source tile bo[b] + s
+// (banded), the clamped woff[b / k] + cmap[b * s_span + s] (cmap; both
+// looked up once, a chunk ahead of the block's first copy, into a table in
+// shared memory), or src[b * s_span + s] as given (the dense layout's
+// explicit source blocks: read by every thread a chunk ahead of the slot's
+// first copy, so s_span has no bound there).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the encoder comes through the runtime's entry-point query)
@@ -255,6 +260,13 @@ __device__ __forceinline__ int a8_off(int r, int c) {
   return r * kChunk + ((((c >> 4) ^ (r >> 2)) & 1) << 4) + (c & 15);
 }
 
+// element offset of (r, c) in a bf16 chunk of 32 columns (TMA's 64-byte
+// swizzle: four pieces a row, swapped by row / 2; fragment reads of eight
+// rows are conflict-free)
+__device__ __forceinline__ int a16_off(int r, int c) {
+  return r * kChunk + ((((c >> 3) ^ (r >> 1)) & 3) << 3) + (c & 7);
+}
+
 // float offset of (r, c) in an f32 chunk of 32 columns (eight pieces a row,
 // swizzled by row)
 __device__ __forceinline__ int a32_off(int r, int c) {
@@ -376,15 +388,23 @@ inline bool make_rows_map(CUtensorMap* map, const void* base, int bf16, size_t r
              : make_map(map, base, 2, rows, W, box_rows, 64, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// the element type of A's tiles (spmm_dense.py's TILE_KINDS)
+enum : int { kAInt8 = 0, kAF32 = 1, kABf16 = 2 };
+
+__host__ __device__ inline int a_elem_bytes(int a_kind) {
+  return a_kind == kAInt8 ? 1 : a_kind == kAF32 ? 4 : 2;
+}
+
 struct SlotArgs {
   CUtensorMap map_a;  // A as [nb * s_span * tile, tile], boxes [tile, 32]
   CUtensorMap map_x;  // B as [nb * tile, width], boxes of 32 rows
-  const void* a;      // [nb, s_span, tile, tile] int8, or f32 with a_f32
-  int a_f32;
+  const void* a;      // [nb, s_span, tile, tile] of a_kind
+  int a_kind;         // kAInt8, kAF32 or kABf16
   int amode;  // kScale*: A's column scale
   const int* bo;
   const int* cmap;  // [nb * s_span] or NULL
   const int* woff;  // [nb / k] with cmap
+  const int* src;   // [nb * s_span] source tiles as given (< nb): SlotLoop's kSrc
   int k, nb, s_span, tile;
   const void* x;  // B: [nb * tile, width] bf16 (x_bf16) or f32
   int x_bf16, width;
@@ -405,34 +425,36 @@ struct TailArgs {
   int wrows, wcols, tail, tma_w;
 };
 
-// the slot loop's maps: A's chunks (32-byte swizzle for int8 rows of 32
-// bytes, 128-byte for f32 rows of 128) and B's rows
+// the slot loop's maps: A's chunks (rows of 32, 64 or 128 bytes for int8,
+// bf16 or f32, each under the swizzle of its width) and B's rows
 inline void make_slot_maps(SlotArgs& p) {
   const size_t a_rows = static_cast<size_t>(p.nb) * p.s_span * p.tile;
-  p.tma_a = make_map(&p.map_a, p.a, p.a_f32 ? 4 : 1, a_rows, p.tile, p.tile, kChunk,
-                     p.a_f32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B);
+  p.tma_a = make_map(&p.map_a, p.a, a_elem_bytes(p.a_kind), a_rows, p.tile, p.tile, kChunk,
+                     p.a_kind == kAF32    ? CU_TENSOR_MAP_SWIZZLE_128B
+                     : p.a_kind == kABf16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                          : CU_TENSOR_MAP_SWIZZLE_32B);
   p.tma_x = (p.transform || p.x_bf16) &&
             make_rows_map(&p.map_x, p.x, p.x_bf16, static_cast<size_t>(p.nb) * p.tile, p.width,
                           kChunk, p.transform != 0);
 }
 
-__host__ __device__ inline int slot_a_bytes(int tile, int a_f32) {
-  return tile * kChunk * (a_f32 ? 4 : 1);
+__host__ __device__ inline int slot_a_bytes(int tile, int a_kind) {
+  return tile * kChunk * a_elem_bytes(a_kind);
 }
 
 __host__ __device__ inline int slot_b_bytes(int x_bf16, int transform) {
   return kChunk * kRow * (transform && !x_bf16 ? 4 : 2);
 }
 
-__host__ __device__ inline int slot_stage_bytes(int tile, int a_f32, int x_bf16, int transform) {
-  const int n = slot_a_bytes(tile, a_f32) + slot_b_bytes(x_bf16, transform) + kVecFloats * 4;
+__host__ __device__ inline int slot_stage_bytes(int tile, int a_kind, int x_bf16, int transform) {
+  const int n = slot_a_bytes(tile, a_kind) + slot_b_bytes(x_bf16, transform) + kVecFloats * 4;
   return (n + 1023) / 1024 * 1024;  // B's halves stay 1024-byte aligned
 }
 
 // bytes of the ring and of the transformed-B tile (the caller adds 1024 to
 // align the ring's start)
 __host__ __device__ inline size_t slot_ring_bytes(int nst, const SlotArgs& p) {
-  return static_cast<size_t>(nst) * slot_stage_bytes(p.tile, p.a_f32, p.x_bf16, p.transform) +
+  return static_cast<size_t>(nst) * slot_stage_bytes(p.tile, p.a_kind, p.x_bf16, p.transform) +
          (p.transform ? kChunk * kRow * 2 : 0);
 }
 
@@ -446,11 +468,14 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* smem) {
   return smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
 }
 
-// NST stages; with kTail the stream carries a TailArgs' tail; warpgroup w
-// at rows 64 w; warp v of a warpgroup holds rows 16 v + g
-// and + 8 of its 64 (g = lane / 4, t = lane % 4): acc[j][e] is row
-// 16 v + g + 8 (e / 2), column 8 j + 2 t + e % 2 of the warpgroup's tile.
-template <int NST, bool kTail = false>
+// NST stages; with kTail the stream carries a TailArgs' tail; with kSrc
+// the slots' sources are SlotArgs' src and A may be bf16 (the dense
+// layout: a compile-time mode, so the banded kernels' loop carries none of
+// its branches); warpgroup w at rows 64 w; warp v of a warpgroup holds
+// rows 16 v + g and + 8 of its 64 (g = lane / 4, t = lane % 4): acc[j][e]
+// is row 16 v + g + 8 (e / 2), column 8 j + 2 t + e % 2 of the
+// warpgroup's tile.
+template <int NST, bool kTail = false, bool kSrc = false>
 struct SlotLoop {
   static constexpr int kNT = 16;  // n-tiles of 8 columns
   static constexpr int kThreads = 256;
@@ -465,18 +490,39 @@ struct SlotLoop {
   // copy cursor: the next chunk to copy (it: the chunk of the tail, or -1)
   int ib = 0, is = 0, ij = 0, it = -1, ist = 0;
   long qi = 0;
+  int src_next = 0;  // with kSrc: the cursor's source tile
 
   __device__ SlotLoop(const SlotArgs& args, unsigned char* ring_1024, int* tab,
                       const TailArgs* tail_args = nullptr)
       : p(args), tl(tail_args), ring(ring_1024), table(tab) {
-    stage_bytes = slot_stage_bytes(p.tile, p.a_f32, p.x_bf16, p.transform);
-    a_bytes = slot_a_bytes(p.tile, p.a_f32);
+    stage_bytes = slot_stage_bytes(p.tile, akind(), p.x_bf16, p.transform);
+    a_bytes = slot_a_bytes(p.tile, akind());
     b_bytes = slot_b_bytes(p.x_bf16, p.transform);
     bfb = reinterpret_cast<__nv_bfloat16*>(ring + NST * stage_bytes);
     cpt = p.tile / kChunk;
     C = p.s_span * cpt;
     nblk = (p.nb - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
     Q = static_cast<long>(nblk) * (C + (kTail ? tl->tail : 0));
+    if constexpr (kSrc)
+      if (Q > 0) src_next = src_load(0, 0);
+  }
+
+  // the given source tile of slot s of block i (clamped to [0, nb))
+  __device__ int src_load(int i, int s) const {
+    const int v = __ldg(p.src + static_cast<size_t>(block_of(i)) * p.s_span + s);
+    return min(max(v, 0), p.nb - 1);
+  }
+
+  // A's tile kind. Without kSrc it is int8 or f32, and is tested as such
+  // (a_kind != kAInt8 is f32): a three-valued kind in the banded loop's
+  // sizes and branches cost its kernel 3-4 % on the H100 (PERF.md).
+  __device__ int akind() const {
+    if constexpr (kSrc) return p.a_kind;
+    return p.a_kind != kAInt8 ? kAF32 : kAInt8;
+  }
+  __device__ bool a_f32() const {
+    if constexpr (kSrc) return p.a_kind == kAF32;
+    return p.a_kind != kAInt8;
   }
 
   // this thread's first row
@@ -487,8 +533,9 @@ struct SlotLoop {
 
   __device__ int block_of(int i) const { return blockIdx.x + i * gridDim.x; }
 
-  // this thread's entry of block i's table (or 0)
+  // this thread's entry of block i's table (or 0; no table with kSrc)
   __device__ int table_load(int i) const {
+    if constexpr (kSrc) return 0;
     const int b = block_of(i), tid = threadIdx.x;
     if (p.cmap != nullptr)
       return tid < p.s_span
@@ -499,6 +546,7 @@ struct SlotLoop {
   }
 
   __device__ void table_store(int i, int v) const {
+    if constexpr (kSrc) return;
     const int tid = threadIdx.x;
     if (p.cmap != nullptr) {
       if (tid < p.s_span) table[(i & 1) * kMaxCmapSlots + tid] = v;
@@ -546,8 +594,12 @@ struct SlotLoop {
     }
     const int b = block_of(ib);
     const int par = ib & 1;
-    const int src = p.cmap != nullptr ? table[par * kMaxCmapSlots + is]
-                                      : table[2 * kMaxCmapSlots + par] + is;
+    int src;
+    if constexpr (kSrc)
+      src = src_next;
+    else
+      src = p.cmap != nullptr ? table[par * kMaxCmapSlots + is]
+                              : table[2 * kMaxCmapSlots + par] + is;
     unsigned char* st = ring + ist * stage_bytes;
     const int j0 = ij * kChunk;
     const int arow = (b * p.s_span + is) * p.tile;  // the slot tile's first row of A's 2-D view
@@ -574,9 +626,12 @@ struct SlotLoop {
       const size_t tile0 = (static_cast<size_t>(b) * p.s_span + is) * p.tile * p.tile + j0;
       for (int idx = tid; idx < p.tile * kChunk; idx += kThreads) {
         const int r = idx >> 5, c = idx & 31;
-        if (p.a_f32)
+        if (a_f32())
           reinterpret_cast<float*>(st)[a32_off(r, c)] =
               static_cast<const float*>(p.a)[tile0 + r * p.tile + c];
+        else if (kSrc && p.a_kind == kABf16)
+          reinterpret_cast<__nv_bfloat16*>(st)[a16_off(r, c)] =
+              static_cast<const __nv_bfloat16*>(p.a)[tile0 + r * p.tile + c];
         else
           reinterpret_cast<int8_t*>(st)[a8_off(r, c)] =
               static_cast<const int8_t*>(p.a)[tile0 + r * p.tile + c];
@@ -597,6 +652,9 @@ struct SlotLoop {
         else
           ++ib;
       }
+      // the next slot's source, a chunk of products ahead of its use
+      if constexpr (kSrc)
+        if (qi + 1 < Q) src_next = src_load(ib, is);
     }
     ++qi;
     if (++ist == NST) ist = 0;
@@ -629,13 +687,17 @@ struct SlotLoop {
           af[kk][q] = 0;
           continue;
         }
-        if (p.a_f32) {
+        if (a_f32()) {
           const float2 f = *reinterpret_cast<const float2*>(
               reinterpret_cast<const float*>(st) + a32_off(rr, cc));
           // bf16(bf16(A) * bf16(cs)): the weights are rounded first
           const float e0 = p.amode == kScaleCs ? bf16_round(f.x) : f.x;
           const float e1 = p.amode == kScaleCs ? bf16_round(f.y) : f.y;
           af[kk][q] = pack_bf16(e0 * sc[(q >> 1) * 2], e1 * sc[(q >> 1) * 2 + 1]);
+        } else if (kSrc && p.a_kind == kABf16) {
+          // as it is: the dense layout has no column scale
+          af[kk][q] = *reinterpret_cast<const uint32_t*>(
+              reinterpret_cast<const __nv_bfloat16*>(st) + a16_off(rr, cc));
         } else {
           const uint32_t w = *reinterpret_cast<const uint16_t*>(st + a8_off(rr, cc)) ^ 0x8080u;
           af[kk][q] = p.amode == kScaleNone

@@ -441,7 +441,7 @@ extern "C" int sage_bwd_launch(const void* a, int a_f32, const void* bo, const v
     return SLDM_ERR_SHAPE;
   SlotArgs p{};
   p.a = a;
-  p.a_f32 = a_f32;
+  p.a_kind = a_f32 ? kAF32 : kAInt8;
   p.amode = rstd != nullptr ? (cs != nullptr ? kScaleRstdCs : kScaleRstd)
                             : (cs != nullptr ? kScaleCs : kScaleNone);
   p.bo = static_cast<const int*>(bo);

@@ -119,6 +119,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.gru_fwd_sg_launch.restype = i
     pi = ctypes.POINTER(ctypes.c_int)
+    lib.gru_fwd_route.argtypes = [i, i, pi]  # D, H, -> route
+    lib.gru_fwd_route.restype = i
     for name in ("gru_bwd_grid", "gru_bwd_sg_grid"):
         getattr(lib, name).argtypes = [i, i, i, pi, pi]  # N, D, H, <-> dw_smem, -> blocks
         getattr(lib, name).restype = i

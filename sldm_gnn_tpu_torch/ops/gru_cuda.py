@@ -205,6 +205,28 @@ def gru_fwd_sg(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
 gru_fwd_sg.launches = 0
 
 
+# The forward kernels a width can run, by the code csrc/gru_fwd.cu's
+# ``route`` gives it: the tensor-core kernel, the FMA kernel, or neither
+# (the weights do not fit one block's shared memory).
+FWD_ROUTES = {1: "tensor cores", 0: "FMA", -1: "none (shared memory)"}
+
+
+def gru_fwd_route(d: int, h: int) -> int:
+    """Which kernel :func:`gru_fwd` and :func:`gru_fwd_sg` launch for input
+    width ``d`` and hidden width ``h`` (a key of ``FWD_ROUTES``), as the
+    library's ``gru_fwd_route`` reports it for the current card. The rule
+    lives only there (``route`` in ``csrc/gru_fwd.cu``), so this builds the
+    library and needs the card."""
+    import ctypes
+
+    from . import _build
+
+    lib = _build.load()
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.gru_fwd_route(d, h, ctypes.byref(out)), "gru_fwd_route")
+    return out.value
+
+
 def _weights(dev, w_ih, b_ih, w_hh, b_hh):
     return (w_ih.to(dev, torch.bfloat16).contiguous(), b_ih.to(dev, torch.float32).contiguous(),
             w_hh.to(dev, torch.bfloat16).contiguous(), b_hh.to(dev, torch.float32).contiguous())

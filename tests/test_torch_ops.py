@@ -308,3 +308,75 @@ def test_store_gates_only_when_a_gradient_is_needed(rng, monkeypatch):
         h.sum().backward()
     assert torch.equal(h.detach(), h_eval)
     assert all(w.grad is not None and w.grad.abs().max() > 0 for w in ws)
+
+
+# ------------------------------------------------------------ the forward kernels' widths
+
+
+@pytest.mark.parametrize("n", [1, 32, 65])
+@pytest.mark.parametrize("h", [16, 33, 40, 128])
+@pytest.mark.parametrize("d", [6, 128])
+def test_gru_fwd_plain_matches_pallas_at_kernel_widths(rng, n, h, d):
+    """The plain versions of both forward instances against the Pallas
+    kernels in interpret mode at the widths the tensor-core kernel pads (H
+    to a multiple of 32, D to 16; an odd H, whose outputs it stores element
+    by element) and the row counts around its 64-row tile: h_last and hs (gru_last_pallas, gru_seq_pallas) and the
+    store-gates hs and gates (_run_fwd3), whose hs is the plain instance's
+    bit for bit."""
+    from sldm_gnn_tpu.ops.gru_pallas import _run_fwd3
+
+    T = 6
+    p = init_gru_params(jax.random.PRNGKey(h + d), d, h, 1)
+    x = rng.standard_normal((n, T, d)).astype(np.float32)
+    w = [_t(a) for a in (p.w_ih0, p.b_ih0, p.w_hh0, p.b_hh0)]
+    jw = (p.w_ih0, p.b_ih0, p.w_hh0, p.b_hh0)
+    got = gru_cuda.gru_fwd_plain(_t(x), *w)
+    want = gru_last_pallas(jnp.asarray(x), *jw, 1024, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=BF16_GRU_ATOL)
+    hs = gru_cuda.gru_fwd_plain(_t(x), *w, seq=True)
+    want_hs = gru_seq_pallas(jnp.asarray(x), *jw, 1024, True)
+    np.testing.assert_allclose(hs.float().transpose(0, 1).numpy(), np.asarray(want_hs),
+                               rtol=0, atol=BF16_GRU_ATOL)
+    hs_sg, gates = gru_cuda.gru_fwd_sg_plain(_t(x), *w)
+    assert torch.equal(hs_sg, hs) and gates.shape == (T, n, 4 * h)
+    n_pad = -(-n // 16) * 16
+    xt = jnp.pad(jnp.moveaxis(jnp.asarray(x), 1, 0), ((0, 0), (0, n_pad - n), (0, 0)))
+    hs_j, gates_j = _run_fwd3(xt, p.w_ih0.astype(jnp.bfloat16), p.b_ih0,
+                              p.w_hh0.astype(jnp.bfloat16), p.b_hh0, rb=16, interpret=True)
+    for a, b in ((hs_sg, hs_j), (gates, gates_j)):
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(b[:, :n].astype(jnp.float32)),
+                                   rtol=0, atol=BF16_GRU_ATOL)
+
+
+@pytest.mark.parametrize("h,mult,d", [(40, 16, 6), (40, 32, 128), (100, 32, 6), (96, 32, 96)])
+def test_gru_padded_units_stay_zero(rng, h, mult, d):
+    """H padded to a multiple of 16 (the wgmma depth) or 32 (the tensor-core
+    kernel's four warpgroups of whole 8-unit tiles) with zero weights and zero
+    biases: the first H units come out as without the padding (the zero terms
+    add exact zeros), and a padded unit is exactly 0 at every step (r = z =
+    1/2, n = tanh(0) = 0), its stored gates 1/2, 1/2, 0 and hn 0."""
+    n, T, hp = 33, 8, -(-h // mult) * mult
+    b = 1.0 / h ** 0.5
+    u = lambda *s: torch.from_numpy(rng.uniform(-b, b, s).astype(np.float32))
+    w_ih, b_ih, w_hh, b_hh = u(d, 3 * h), u(3 * h), u(h, 3 * h), u(3 * h)
+
+    def pad_gates(w):
+        out = torch.zeros(w.shape[:-1] + (3 * hp,))
+        for g in range(3):
+            out[..., g * hp:g * hp + h] = w[..., g * h:(g + 1) * h]
+        return out
+
+    p_hh = torch.zeros((hp, 3 * hp))
+    p_hh[:h] = pad_gates(w_hh)
+    padded = (pad_gates(w_ih), pad_gates(b_ih), p_hh, pad_gates(b_hh))
+    x = torch.from_numpy(rng.standard_normal((n, T, d)).astype(np.float32))
+    hs = gru_cuda.gru_fwd_plain(x, w_ih, b_ih, w_hh, b_hh, seq=True)
+    hs_p, gates_p = gru_cuda.gru_fwd_sg_plain(x, *padded)
+    assert torch.equal(hs_p[..., :h], hs)
+    assert torch.equal(hs_p[..., h:], torch.zeros_like(hs_p[..., h:]))
+    pads = [gates_p[..., g * hp + h:(g + 1) * hp].float() for g in range(4)]
+    for got, want in zip(pads, (0.5, 0.5, 0.0, 0.0)):
+        assert torch.equal(got, torch.full_like(got, want))
+    assert torch.equal(gru_cuda.gru_fwd_plain(x, *padded)[:, :h],
+                       gru_cuda.gru_fwd_plain(x, w_ih, b_ih, w_hh, b_hh))
+

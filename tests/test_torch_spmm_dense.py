@@ -6,6 +6,8 @@ csrc/spmm_dense.cu agrees with the JAX Pallas kernel in interpret mode, the
 reference paths and gradients agree with JAX's, and the automatic layout
 choice picks what JAX picks."""
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -160,6 +162,63 @@ def test_dense_apply_and_grad_match_jax(rng, dtype):
     (tsd.spmm_dense_apply(xk, tf, tr, True) * torch.from_numpy(t)).sum().backward()
     want_k = jsd.spmm_dense_pallas(jnp.asarray(t), jr, interpret=True)
     assert _max_rel(xk.grad.numpy(), want_k) < KERNEL_REL
+
+
+def _jax_blocks(tb):
+    """The same layout as the JAX package's DenseBlocks."""
+    conv = lambda t: None if t is None else jnp.asarray(_np(t)).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else _np(t).dtype)
+    return jsd.DenseBlocks(a=conv(tb.a), src_blk=conv(tb.src_blk), row_scale=conv(tb.row_scale),
+                           col_scale=conv(tb.col_scale), tile=tb.tile)
+
+
+def _hold_dense_cases(rng, tb, d):
+    """The plain version against the interpret kernel on one layout: f32 x
+    at KERNEL_REL and bf16 x at 2^-8 (each rounds its f32 sum to bf16 once),
+    with the layout's row scale and without one (a random one where the
+    layout has none)."""
+    n_pad = tb.num_dst_blocks * tb.tile
+    rs = torch.from_numpy(rng.uniform(0.25, 1.0, (n_pad, 1)).astype(np.float32))
+    with_rs = tb if tb.row_scale is not None else dataclasses.replace(tb, row_scale=rs)
+    x = rng.standard_normal((n_pad, d)).astype(np.float32)
+    for lay in (with_rs, dataclasses.replace(tb, row_scale=None)):
+        jb = _jax_blocks(lay)
+        want = jsd.spmm_dense_pallas(jnp.asarray(x), jb, interpret=True)
+        assert _max_rel(tsd.spmm_dense(torch.from_numpy(x), lay).numpy(), want) < KERNEL_REL
+        want16 = jsd.spmm_dense_pallas(jnp.asarray(x).astype(jnp.bfloat16), jb, interpret=True)
+        got16 = tsd.spmm_dense(torch.from_numpy(x).to(torch.bfloat16), lay)
+        assert got16.dtype == torch.bfloat16
+        assert _max_rel(_np(got16), np.asarray(want16, np.float32)) < 2.0 ** -8
+
+
+@pytest.mark.parametrize("tile,d", [(32, 4), (64, 40), (128, 96), (32, 128)])
+@pytest.mark.parametrize("kind", ["int8", "f32", "bf16"])
+@pytest.mark.parametrize("direction", ["fwd", "rev"])
+def test_dense_plain_matches_pallas_ragged(rng, tile, d, kind, direction):
+    """The card sweep's ragged shapes (chip_smoke.py's dense sweep): tiles
+    32-128, widths that are not multiples of 16, every tile type, both
+    directions (the reverse layout's column scale applied to x first)."""
+    n = 2 * tile + tile // 2 + 3  # three blocks, the last one ragged
+    src, dst = rng.integers(0, n, 12 * n), rng.integers(0, n, 12 * n)
+    dtype = np.int8 if kind == "int8" else np.float32
+    fwd, rev, _ = tsd.prepare_dense_mean_aggregate(src, dst, n, tile=tile, dtype=dtype)
+    tb = fwd if direction == "fwd" else rev
+    if kind == "bf16":
+        tb = dataclasses.replace(tb, a=tb.a.to(torch.bfloat16))
+    _hold_dense_cases(rng, tb, d)
+
+
+def test_dense_plain_matches_pallas_past_64_slots(rng):
+    """One destination block fed by 70 source blocks (tile 32): more slots
+    than the kernels' table of cmap slots holds."""
+    tile, nsrc = 32, 70
+    n = (nsrc + 1) * tile
+    src = np.concatenate([np.arange(1, nsrc + 1) * tile + rng.integers(0, tile, nsrc),
+                          rng.integers(0, n, 200)])
+    dst = np.concatenate([rng.integers(0, tile, nsrc), rng.integers(0, n, 200)])
+    fwd, _, _ = tsd.prepare_dense_mean_aggregate(src, dst, n, tile=tile, dtype=np.int8)
+    assert fwd.s_max >= nsrc
+    _hold_dense_cases(rng, fwd, 40)
 
 
 # ------------------------------------------------------------ hybrid
