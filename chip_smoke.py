@@ -60,12 +60,18 @@ launch count set to 0 just before a path and read just after it:
   * the cmap tier on a scattered low-degree graph of 200 064 nodes
     (``tests/test_spmm_cmap.py``'s generator): its four banded kernels,
     bench.py's fused step and the classifier (``fused_ln`` and unfused);
-  * before the banded phases, a sweep of the two tensor-core kernels
-    (``spmm_banded`` and the reverse kernel of ``banded_sage_bwd`` /
-    ``banded_sage_ln_bwd``) over ragged shapes on a small graph: tiles 32,
-    64 and 128, widths (D, H) of (40, 4), (4, 40) and (128, 96), f32 and
-    bf16, int8 counts and f32 weights, with and without scales, x and the
-    residual, and a cmap layout; each against its plain version. Then the
+  * after the k-NN check, a sweep of ``knn_topk`` at V of 1 to 19 430, k of
+    1 to 128, S from k to 5000, on integer-grid data (exact distance ties)
+    and on copies of one centroid 1, 32, 33 and 256 places apart, indices
+    equal to the plain version's;
+  * before the banded phases, a sweep of the banded tensor-core kernels
+    (``spmm_banded``, the fused forward ``banded_sage_fwd`` and the reverse
+    kernel of ``banded_sage_bwd`` / ``banded_sage_ln_bwd``) over ragged
+    shapes on a small graph: tiles 32, 64 and 128, widths (D, H) of (40,
+    4), (4, 40) and (128, 96), f32 and bf16, int8 counts and f32 weights,
+    with and without scales, x and the residual, the forward's bias,
+    LayerNorm and activation, and a cmap layout; each against its plain
+    version. Then the
     dense SpMM over the same tiles, D 4, 40, 96 and 128, int8, f32 and
     bf16 tiles, both directions, with and without a row scale, and layouts
     of 1, 5 and 70 slots a block;
@@ -73,6 +79,11 @@ launch count set to 0 just before a path and read just after it:
     ``gru_fwd_sg`` at N of 1 to 19 558, H of 16, 40, 96, 128 and each D's
     widest, D of 6, 96 and 128, against their plain versions, with the
     kernel each width routes to (tensor cores or FMA) printed.
+
+Times are the card's: where the host takes about as long to launch a call
+as the card to run it (the k-NN and GRU kernels and their library calls at
+one served window), the calls are replayed from a CUDA graph
+(``device_ms``).
 
 It prints its findings, a ``{"kernels": [...]}`` line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -84,6 +95,7 @@ network.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -254,6 +266,44 @@ def timed(fn, iters: int, warmup: int = 2) -> tuple[float, float]:
     return start.elapsed_time(end) / iters, host
 
 
+def graph_ms(fn, iters: int, reps: int = 5) -> float:
+    """ms per call on the card of `iters` calls of fn captured in one CUDA
+    graph and replayed `reps` times: no host work between the calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture asks
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def device_ms(fn, iters: int, what: str) -> float:
+    """ms per call on the card: timed() where the host launches a call well
+    within the card's time for it; else (the events then time the host)
+    the same calls replayed from a CUDA graph, both logged."""
+    ms, host = timed(fn, iters)
+    if host < 0.8 * ms:
+        return ms
+    g = graph_ms(fn, iters)
+    log(f"  {what}: {ms:.4f} ms a call by events around launched calls (host {host:.4f} ms "
+        f"a call), {g:.4f} ms replayed from a CUDA graph")
+    return g
+
+
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -349,15 +399,15 @@ def check_gru(gru_cuda, gen, rng, dev) -> dict:
 
     ms, _ = timed(lambda: gru_cuda.gru_fwd(x, *w), iters=20)
     xs = x[:32].contiguous()  # a served window: 32 node rows (power-of-two padding)
-    serve_ms, serve_host = timed(lambda: gru_cuda.gru_fwd(xs, *w), iters=200)
+    serve_ms = device_ms(lambda: gru_cuda.gru_fwd(xs, *w), 200, "gru_fwd at N=32")
     serve_plain_ms, _ = timed(lambda: gru_cuda.gru_fwd_plain(xs, *w), iters=5, warmup=1)
     serve_bound_ms, serve_bound_by = bound(*gru_fwd_cost(32, FEATURES, HIDDEN), PEAK_BF16_FLOP_S)
     chain_ms = gru_chain_floor_ms(FEATURES, HIDDEN)
     lib32 = torch.nn.GRU(FEATURES, HIDDEN, batch_first=True).to(dev)
     with torch.inference_mode():
-        serve_library_ms, _ = timed(lambda: lib32(xs), iters=200)
-    log(f"gru_fwd at N=32 (one served window): {serve_ms:.4f} ms per call on the card, "
-        f"{serve_host:.4f} ms to issue it on the host; plain {serve_plain_ms:.4f} ms; bound "
+        serve_library_ms = device_ms(lambda: lib32(xs), 200, "nn.GRU f32 at N=32")
+    log(f"gru_fwd at N=32 (one served window): {serve_ms:.4f} ms per call on the card; plain "
+        f"{serve_plain_ms:.4f} ms; bound "
         f"{serve_bound_ms:.6f} ms ({serve_bound_by}); the design's chain floor {chain_ms:.4f} ms; "
         f"nn.GRU f32 at N=32 {serve_library_ms:.4f} ms")
     plain_ms, _ = timed(lambda: gru_cuda.gru_fwd_plain(x, *w), iters=3, warmup=1)
@@ -413,21 +463,21 @@ def check_knn(knn_ops, gen, rng, dev) -> dict:
     tie_pts[: v // 2] = dup[10] + torch.randn((v // 2, 2), generator=gen).to(dev) * 1e-3
     compare(tie_pts, dup, f"V={v} S={SEGMENTS} k={K} duplicate-centroid ties")
 
-    ms, host = timed(lambda: knn_ops.knn_topk_fused(pts, cts, K), iters=50)
-    log(f"knn_topk V={v}: host {host:.4f} ms to issue one call")
+    ms = device_ms(lambda: knn_ops.knn_topk_fused(pts, cts, K), 50, f"knn_topk at V={v}")
     ps = pts[:32].contiguous()
-    serve_ms, serve_host = timed(lambda: knn_ops.knn_topk_fused(ps, cts, K), iters=200)
+    serve_ms = device_ms(lambda: knn_ops.knn_topk_fused(ps, cts, K), 200, "knn_topk at V=32")
     serve_plain_ms, _ = timed(lambda: knn_ops.knn_topk_plain(ps, cts, K), iters=50)
     serve_bound_ms, serve_bound_by = bound(*knn_cost(32), PEAK_F32_FLOP_S)
-    serve_library_ms, _ = timed(
-        lambda: torch.topk(torch.cdist(ps, cts), K, dim=1, largest=False), iters=200)
-    log(f"knn_topk at V=32 (one served window): {serve_ms:.4f} ms per call on the card, "
-        f"{serve_host:.4f} ms to issue it on the host; plain {serve_plain_ms:.4f} ms; bound "
-        f"{serve_bound_ms:.7f} ms "
-        f"({serve_bound_by}); cdist+topk at V=32 {serve_library_ms:.4f} ms")
+    serve_library_ms = device_ms(
+        lambda: torch.topk(torch.cdist(ps, cts), K, dim=1, largest=False), 200,
+        "cdist+topk at V=32")
+    log(f"knn_topk at V=32 (one served window, {knn_ops.knn_topk_warps(32)} warps a point): "
+        f"{serve_ms:.4f} ms per call on the card; plain {serve_plain_ms:.4f} ms; bound "
+        f"{serve_bound_ms:.7f} ms ({serve_bound_by}); cdist+topk at V=32 {serve_library_ms:.4f} "
+        f"ms")
     plain_ms, _ = timed(lambda: knn_ops.knn_topk_plain(pts, cts, K), iters=10)
-    library_ms, _ = timed(lambda: torch.topk(torch.cdist(pts, cts), K, dim=1, largest=False),
-                         iters=50)
+    library_ms = device_ms(lambda: torch.topk(torch.cdist(pts, cts), K, dim=1, largest=False),
+                           50, f"cdist+topk at V={v}")
     bound_ms, bound_by = bound(*knn_cost(v), PEAK_F32_FLOP_S)
     log(f"knn_topk timing V={v} S={SEGMENTS}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"cdist+topk {library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
@@ -438,6 +488,55 @@ def check_knn(knn_ops, gen, rng, dev) -> dict:
                 bound_by=bound_by, library_ms=library_ms, serve_shape_ms=serve_ms,
                 serve_shape_plain_ms=serve_plain_ms, serve_shape_bound_ms=serve_bound_ms,
                 serve_shape_library_ms=serve_library_ms)
+
+
+# the k-NN sweep: point counts around one warp's width, those that take 2
+# and 4 warps a point on 132 SMs, and the training batch's; k on one list
+# row a lane (<= 32) and on four (above); S from k up, below 32, not a
+# multiple of 32, past one shared-memory chunk (2048)
+KNN_SWEEP_V = (1, 31, 32, 33, 300, 700, 19430)
+KNN_SWEEP_K = (1, 5, 8, 9, 32, 33, 128)
+KNN_SWEEP_S = (20, 37, 1000, 5000)
+
+
+def check_knn_sweep(knn_ops, dev) -> int:
+    """knn_topk_fused against knn_topk_plain over KNN_SWEEP_V x KNN_SWEEP_K x
+    S of k and KNN_SWEEP_S (those >= k), so every warps-a-point choice, on
+    two kinds of data: centroids on a small integer grid (exact d2 ties
+    between different centroids everywhere) with points on it, and spread
+    centroids with copies of centroid 0 at 1, 32, 33 and 256 (ties within
+    one batch of 32, between batches and between warps) and points near
+    it. Indices equal, distances within KNN_RTOL. Returns the number of
+    cases held."""
+    rng = np.random.default_rng(SEED)
+    n_cases, t0 = 0, time.perf_counter()
+    warps = {v: knn_ops.knn_topk_warps(v) for v in KNN_SWEEP_V}
+    for v, k in itertools.product(KNN_SWEEP_V, KNN_SWEEP_K):
+        for S, kind in itertools.product(sorted({k, *(n for n in KNN_SWEEP_S if n >= k)}),
+                                         ("grid", "copies")):
+            if kind == "grid":
+                cts = rng.integers(-6, 7, (S, 2)).astype(np.float32)
+                pts = rng.integers(-6, 7, (v, 2)).astype(np.float32)
+            else:
+                cts = (rng.standard_normal((S, 2)) * 100).astype(np.float32)
+                for off in (1, 32, 33, 256):
+                    if off < S:
+                        cts[off] = cts[0]
+                pts = (cts[0] + rng.standard_normal((v, 2)) * 1e-3).astype(np.float32)
+            p, c = torch.from_numpy(pts).to(dev), torch.from_numpy(cts).to(dev)
+            d_k, i_k = knn_ops.knn_topk_fused(p, c, k)
+            d_p, i_p = knn_ops.knn_topk_plain(p, c, k)
+            torch.cuda.synchronize()
+            rel = ((d_k - d_p).abs() / d_p.abs().clamp_min(1e-30)).max().item()
+            if not torch.equal(i_k, i_p) or rel > KNN_RTOL:
+                bad = (i_k != i_p).any(dim=1).sum().item()
+                raise AssertionError(f"knn sweep V={v} S={S} k={k} {kind}: {bad} rows' indices "
+                                     f"differ, max_rel {rel:.3e} (tol {KNN_RTOL})")
+            n_cases += 1
+    log(f"knn sweep: {n_cases} cases, indices equal, distances within {KNN_RTOL}; warps a point "
+        + ", ".join(f"V={v}: {w}" for v, w in warps.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    return n_cases
 
 
 def gates_from_hs(gru_cuda, x, hs, w_ih, b_ih, w_hh, b_hh) -> torch.Tensor:
@@ -2318,20 +2417,27 @@ SWEEP_DEG = 6
 SWEEP_TILES = (32, 64, 128)
 SWEEP_WIDTHS = ((40, 4), (4, 40), (128, 96))
 SWEEP_CMAP_NODES = 4096
+# the fused forward's epilogues in the sweep, (bias, LayerNorm, slope): each
+# option on and off, and every slope (None: no activation, 0: ReLU, 0.1:
+# LeakyReLU) with LayerNorm and without
+FWD_EPILOGUES = ((False, False, None), (True, False, 0.0), (False, False, 0.1),
+                 (True, True, None), (False, True, 0.0), (True, True, 0.1))
 
 
 def check_ragged_sweep(mods: dict, dev) -> int:
-    """spmm_banded, banded_sage_bwd and banded_sage_ln_bwd against their
-    plain versions at BANDED_REL (max|err| / max|plain| per output), two
-    launches bit-equal, outputs finite: tiles 32, 64 and 128; (D, H) in
-    SWEEP_WIDTHS; bf16 and f32 activations; int8 counts and f32 weight
-    tiles (a_f32); the forward layout (rs), the reverse layout (cs) and
-    neither scale; with and without x; the compact residual; and a cmap
-    layout. Returns the number of cases held."""
+    """spmm_banded, banded_sage_fwd, banded_sage_bwd and banded_sage_ln_bwd
+    against their plain versions at BANDED_REL (max|err| / max|plain| per
+    output), two launches bit-equal, outputs finite: tiles 32, 64 and 128;
+    (D, H) in SWEEP_WIDTHS; bf16 and f32 activations; int8 counts and f32
+    weight tiles (a_f32); the forward layout (rs), the reverse layout (cs)
+    and neither scale; with and without x; the compact residual; the fused
+    forward's FWD_EPILOGUES; and a cmap layout. Returns the number of cases
+    held."""
     tsb, tsf, tbr, tcm = (mods[k] for k in ("spmm_banded", "sage_fused", "banded_residual",
                                             "spmm_cmap"))
     gen = torch.Generator().manual_seed(SEED)
-    worst = {"spmm_banded": 0.0, "banded_sage_bwd": 0.0, "banded_sage_ln_bwd": 0.0}
+    worst = {"spmm_banded": 0.0, "banded_sage_fwd": 0.0, "banded_sage_bwd": 0.0,
+             "banded_sage_ln_bwd": 0.0}
     n_cases = 0
 
     def hold(name, what, kernel, plain):
@@ -2366,6 +2472,21 @@ def check_ragged_sweep(mods: dict, dev) -> int:
                 for what, lay in spmm:
                     hold("spmm_banded", f"{dn} {what}", lambda: tsb.spmm_banded(x, lay),
                          lambda: tsb.spmm_banded_plain(x, lay))
+                r_f = (tbr.residual_fwd_compact(x, resid).to(dt), resid.rg_fwd)
+                bias = rand(h, scale=0.1)
+                ln = (rand(h, scale=0.2) + 1.0, rand(h, scale=0.1))
+                fwd = [("int8 (rs)", lay8[0], None),
+                       ("int8, no rs", dataclasses.replace(lay8[0], row_scale=None), None),
+                       ("residual", resid.banded_fwd, r_f)]
+                if lay32 is not None:
+                    fwd.append(("f32 weights (rs)", lay32[0], None))
+                for (what, lay, rf), (b_on, ln_on, slope) in itertools.product(fwd, FWD_EPILOGUES):
+                    kw = dict(negative_slope=slope, resid=rf, ln=ln if ln_on else None)
+                    bv = bias if b_on else None
+                    hold("banded_sage_fwd",
+                         f"{dn} {what}, bias {b_on}, LN {ln_on}, slope {slope}",
+                         lambda: tsf.banded_sage_fwd(x, wl, wr, bv, lay, **kw),
+                         lambda: tsf.banded_sage_fwd_plain(x, wl, wr, bv, lay, **kw))
                 r_r = (tbr.residual_rev_compact(g, resid).to(dt), resid.rg_rev)
                 bwd = [("with x", rev8, dict(x=x)), ("without x", rev8, {}),
                        ("no 1/deg, with x", dataclasses.replace(rev8, col_scale=None), dict(x=x)),
@@ -2379,7 +2500,6 @@ def check_ragged_sweep(mods: dict, dev) -> int:
                          lambda: tsf.banded_sage_bwd_plain(g, wl, wr, lay, **kw))
                 xhat = rand(n_pad, h, dt=dt)
                 rstd = (torch.rand((n_pad, 1), generator=gen) + 0.5).to(dev)
-                ln = (rand(h, scale=0.2) + 1.0, rand(h, scale=0.1))
                 lnb = [("1/deg", rev8, None),
                        ("no 1/deg", dataclasses.replace(rev8, col_scale=None), None),
                        ("residual", resid.banded_rev, r_r)]
@@ -2528,6 +2648,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     entries = [check_gru(gru_cuda, gen, rng, dev), check_knn(knn_ops, gen, rng, dev)]
+    check_knn_sweep(knn_ops, dev)
     for e in entries:
         e["path"] = "serve"
     train_entries = check_gru_training_kernels(gru_cuda, gen, dev)

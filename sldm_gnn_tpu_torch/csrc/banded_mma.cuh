@@ -1,6 +1,7 @@
 // The tensor-core slot loop shared by the SpMM kernel of slot_spmm.cuh
-// (spmm_banded.cu, spmm_dense.cu) and the reverse kernel of
-// sage_fused_bwd.cu, and the PTX building blocks they use.
+// (spmm_banded.cu, spmm_dense.cu), the fused forward of sage_fused_fwd.cu
+// and the reverse kernel of sage_fused_bwd.cu, and the PTX building blocks
+// they use.
 //
 // A block of two warpgroups accumulates an output tile of at most 128 x 128
 // f32 sums, acc = sum_s A[b, s] @ B[src(b, s)], with wgmma m64n128k16 on
@@ -424,6 +425,14 @@ struct TailArgs {
   const __nv_bfloat16* w[2];
   int wrows, wcols, tail, tma_w;
 };
+
+// the depth of a tail's halves: a width rounded up to whole 32-row chunks
+__host__ __device__ inline int depth32(int w) { return (w + 31) / 32 * 32; }
+
+// rows of a tile that a tail's products read from shared memory: whole
+// 64-row wgmma blocks (rows past the tile are read, and their products
+// dropped)
+__host__ __device__ inline int tile_rows64(int tile) { return (tile + 63) / 64 * 64; }
 
 // the slot loop's maps: A's chunks (rows of 32, 64 or 128 bytes for int8,
 // bf16 or f32, each under the swizzle of its width) and B's rows

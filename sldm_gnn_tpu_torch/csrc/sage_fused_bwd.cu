@@ -28,7 +28,7 @@
 // bf16, no LN): bytes, 128.8 MB of A + 51.5 MB of g~ + 51.5 MB of x + 51.5
 // MB of dx (0.085 ms at 3.35 TB/s), over 59 GFLOP (0.060 ms at the bf16
 // tensor-core rate). The first version ran every product on the f32 FMA
-// units (banded_gemm.cuh's block_gemm: >= 0.88 ms at 67 TFLOP/s), staged
+// units (a block product since removed: >= 0.88 ms at 67 TFLOP/s), staged
 // each element through the caller's loaders (an integer division and a
 // rounding each, stored as f32), did not overlap loads with products,
 // re-read Wl^T and Wr^T element by element for every block and kept an
@@ -76,14 +76,7 @@ struct RevArgs {
   int t_bf16;
 };
 
-// the depth of step 2's halves: H rounded up to whole 32-row chunks
-__host__ __device__ inline int depth32(int H) { return (H + 31) / 32 * 32; }
-
 constexpr int kRevStages = 3;
-
-// rows of the t and O tiles: whole 64-row wgmma blocks (rows past the tile
-// are read, and their products dropped)
-__host__ __device__ inline int tile_rows64(int tile) { return (tile + 63) / 64 * 64; }
 
 inline size_t rev_smem_bytes(const SlotArgs& p) {
   return 1024 + slot_ring_bytes(kRevStages, p) +

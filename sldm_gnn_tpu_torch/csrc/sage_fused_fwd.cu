@@ -1,165 +1,287 @@
 // One fused SAGE layer over the banded layout:
 //   out[b] = act(LN?(agg[b] @ Wl + x[b] @ Wr + bias)),
-//   agg[b] = rs[b] * sum_s A[b, s] @ x[bo[b] + s]  (+ the compact residual)
+//   agg[b] = rs[b] * sum_s A[b, s] @ x[src(b, s)]  (+ the compact residual)
 //
 // Replaces the TPU kernel `_fused_kernel` (sldm_gnn_tpu/ops/sage_fused.py:49,
 // launched by `banded_sage_fwd_pallas` :147, pallas_call :283), with its
 // `resid`, `ln` and `cmap` options; `ypre` (the halo overlap's
-// pre-activation output) is not ported. With `cmap`, slot s of block b
-// reads the window tile woff[b / k] + cmap[b * s_span + s] instead of
-// bo[b] + s (sage_fused.py:95-101), staged in shared memory first.
-//
-// Design. One block of 256 threads per destination block of `tile` rows:
-// the aggregation runs as one block product over the s_span source tiles
-// (bo[b] + s, read from device memory; the TPU kernel's double-buffered x
-// window is its way to stream them), then scales by rs, adds the group's
-// compact residual slot where rg[group] > 0 (the slot is not read at all
-// otherwise, which is NaN-safe), rounds to bf16 and stays in shared memory;
-// a second block product [agg | x_own] @ [Wl; Wr] (depth 2D) forms the
-// pre-activation, whose epilogue adds the bias, takes the LayerNorm over
-// the feature axis (f32 mean and variance across the 16 threads of a row by
-// warp shuffles; xhat and rstd stored for the backward) and the activation.
-// The aggregate never leaves the SM. Roundings are the TPU kernel's: tiles,
-// x, agg and the weights in bf16, f32 sums, f32 statistics.
+// pre-activation output) is not ported. Slot s of block b reads source tile
+// bo[b] + s or, with `cmap`, the clamped window tile woff[b / k] + cmap[b *
+// s_span + s] (sage_fused.py:95-101). Roundings are the TPU kernel's: tiles,
+// x, agg and the weights in bf16, f32 sums, f32 LayerNorm statistics, the
+// output at x's dtype.
 //
 // Bound at bench.py's shape (nb = 1572, tile 128, s_span 5, D = H = 128,
 // bf16): bytes, 128.8 MB of A + 51.5 MB of x + 51.5 MB of out (0.069 ms at
 // 3.35 TB/s), over 46 GFLOP (0.047 ms at the bf16 tensor-core rate). The
-// products run on f32 FMAs (banded_gemm.cuh): >= 0.7 ms at 67 TFLOP/s.
-#include "banded_gemm.cuh"
+// first version ran both products on the f32 FMA units (a block product
+// staged element by element through loaders with an integer division and a
+// rounding each: >= 0.7 ms at 67 TFLOP/s, 2.83 ms measured), one block of
+// 256 threads per destination block, nothing overlapping loads and products.
+//
+// This version is the third client of banded_mma.cuh's slot loop, the
+// reverse kernel of sage_fused_bwd.cu with the roles swapped: a persistent
+// grid of two blocks of two warpgroups an SM over the destination blocks in
+// ascending order, one stream of 32-row chunks through a ring of three TMA
+// stages:
+//   step 1, the slot chunks: acc = A @ x by wgmma m64n128k16, A's int8 counts
+//     or f32 weights made bf16 fragments in registers; then, per row, acc *
+//     rs in f32, the group's compact residual slot added where rg > 0 (not
+//     read otherwise, which is NaN-safe), rounded to bf16 into a swizzled
+//     tile in shared memory; the block's own x rows arrive by TMA meanwhile;
+//   step 2, the tail: [Wl; Wr] in 32-row chunks through the same ring (in
+//     flight during step 1), y = [agg | x_own] @ [Wl; Wr] by wgmma from
+//     shared memory, D padded to whole chunks with zero rows and columns, H
+//     to the wgmma width by columns that no statistic or store reads;
+//   the epilogue: bias in f32, LayerNorm in f32 (a row's values sit on the
+//     four threads of a quad: mean, then the centred variance, by quad
+//     shuffles; xhat and rstd stored for the backward), the activation, and
+//     the rows out through shared memory (the agg and x_own tiles, no longer
+//     read) in 16-byte stores. x in f32, and operands TMA cannot take, load
+//     by the loop's element paths.
+#include "banded_mma.cuh"
 
 namespace {
 
-struct FwdSmem {
-  Stage st;
-  __nv_bfloat16 agg[kTileMax * kTileMax];
+struct FwdArgs {
+  CUtensorMap map_own;  // x as [nb * tile, D], boxes [tile, 64] (bf16 x)
+  int tma_own;
+  int D, H;
+  const float* rs;  // [nb * tile] or NULL
+  const void* r_c;  // [m, k_grp * tile, D] or NULL
+  int r_bf16;
+  const int* rg;  // [nb / k_grp] or NULL
+  int k_grp;
+  const float* bias;   // [H] or NULL
+  const float* gamma;  // [H] or NULL (no LayerNorm)
+  const float* beta;
+  float eps;
+  int has_act;
+  float slope;
+  void* out;    // [nb * tile, H] at x's dtype
+  void* xhat;   // [nb * tile, H] at x's dtype, with gamma
+  float* rstd;  // [nb * tile], with gamma
 };
 
-__global__ void __launch_bounds__(kThreads, 2)
-    sage_fwd_kernel(const void* __restrict__ a, int a_f32, const int* __restrict__ bo,
-                    const int* __restrict__ cmap, const int* __restrict__ woff, int nb,
-                    const float* __restrict__ rs, int s_span, int tile, int k_grp,
-                    const void* __restrict__ x, int x_bf16, int D, int H,
-                    const __nv_bfloat16* __restrict__ wl, const __nv_bfloat16* __restrict__ wr,
-                    const float* __restrict__ bias, const float* __restrict__ gamma,
-                    const float* __restrict__ beta, float eps, int has_act, float slope,
-                    const void* __restrict__ r_c, int r_bf16, const int* __restrict__ rg,
-                    void* __restrict__ out, void* __restrict__ xhat, float* __restrict__ rstd) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int stile[kMaxCmapSlots];
-  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem);
-  const int b = blockIdx.x;
-  const int base = bo[b];
-  if (cmap != nullptr) {
-    load_cmap_tiles(stile, cmap, woff, b, k_grp, s_span, nb);
+constexpr int kFwdStages = 3;
+using FwdLoop = SlotLoop<kFwdStages, true>;
+constexpr int kFwdThreads = FwdLoop::kThreads;
+
+inline size_t fwd_smem_bytes(const SlotArgs& p) {
+  return 1024 + slot_ring_bytes(kFwdStages, p) +
+         static_cast<size_t>(2 * tile_rows64(p.tile)) * kRow * 2;
+}
+
+__global__ void __launch_bounds__(kFwdThreads, 2)
+    sage_fwd_kernel(const __grid_constant__ SlotArgs p, const __grid_constant__ TailArgs w,
+                    const __grid_constant__ FwdArgs f) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ int table[kTableInts];
+  __shared__ uint64_t bars[kFwdStages + 1];  // the ring's, then x_own's
+  unsigned char* smem = align1024(smem_raw);
+  FwdLoop loop(p, smem, table, &w);
+  const int tile = p.tile, D = f.D, H = f.H, kd = depth32(D), tr = tile_rows64(tile);
+  __nv_bfloat16* agg_s = reinterpret_cast<__nv_bfloat16*>(smem + slot_ring_bytes(kFwdStages, p));
+  __nv_bfloat16* own_s = agg_s + tr * kRow;
+  // the epilogue's output tile over both: rows of kRow elements at x's
+  // dtype, each row's 16-byte pieces XOR-swizzled by row % 8 (the quads'
+  // stores and the row reads are free of bank conflicts)
+  unsigned char* out_s = reinterpret_cast<unsigned char*>(agg_s);
+  const int esz = p.x_bf16 ? 2 : 4, ldb = kRow * esz;
+  const int tid = threadIdx.x, t = tid & 3;
+  const int rw = FwdLoop::thread_row(), m0 = rw & ~63;  // this thread's rows rw, rw + 8
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+
+  // x_own of block b, in flight during its step 1 (by TMA, or by the element
+  // path with f32 x rounded to bf16 and its columns D .. kd zeroed: the
+  // previous block's output passed through this tile)
+  uint64_t* obar = &bars[kFwdStages];
+  if (tid == 0) mbar_init(obar, 1);  // loop.run's barrier publishes it
+  auto first = [&](int, int b) {
+    if (!f.tma_own) {
+      load_rows(own_s, tr, p.x, p.x_bf16, static_cast<size_t>(b) * tile, tile, D, true);
+      for (int idx = tid; idx < tile * (kd - D); idx += kFwdThreads)
+        own_s[swz_h(tr, idx / (kd - D), D + idx % (kd - D))] = zero;
+    } else if (tid == 0) {  // (the box's columns past D arrive as zeros)
+      const int halves = D > 64 ? 2 : 1;
+      mbar_expect(obar, halves * tile * 128);
+      for (int h = 0; h < halves; ++h)
+        tma_load(own_s + h * tr * 64, &f.map_own, 64 * h, b * tile, obar);
+    }
+  };
+
+  // after step 1: agg = bf16(acc * rs (+ residual)) into agg_s, columns D ..
+  // kd zeroed (step 2's depth padding)
+  auto mid = [&](int i, int b, float (&acc)[16][4]) {
+    const int slot = f.rg != nullptr ? f.rg[b / f.k_grp] : 0;
+    const size_t rr0 = (static_cast<size_t>(slot) * f.k_grp + (b % f.k_grp)) * tile;
+    const size_t row0 = static_cast<size_t>(b) * tile;
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int rr = rw + 8 * h2;
+      if (rr >= tile) continue;
+      const float sc = f.rs != nullptr ? f.rs[row0 + rr] : 1.0f;
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        const int c = nt * 8 + 2 * t;
+        if (c >= kd) continue;
+        float v[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (c + e >= D) continue;
+          v[e] = acc[nt][2 * h2 + e] * sc;
+          if (slot > 0) v[e] += load_f(f.r_c, (rr0 + rr) * D + c + e, f.r_bf16);
+        }
+        *reinterpret_cast<uint32_t*>(agg_s + swz_h(tr, rr, c)) = pack_bf16(v[0], v[1]);
+      }
+    }
+    if (f.tma_own) mbar_wait(obar, i & 1);
+    fence_proxy_async();
     __syncthreads();
-  }
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t tt = static_cast<size_t>(tile) * tile;
-  const size_t a0 = static_cast<size_t>(b) * s_span * tt;
-  const size_t row0 = static_cast<size_t>(b) * tile;
-
-  // 1. agg = A-slots @ x-slots
-  auto la = [&](int m, int k) {
-    const int s = k / tile, j = k - s * tile;
-    return bf16_round(load_a(a, a0 + s * tt + static_cast<size_t>(m) * tile + j, a_f32));
   };
-  auto lb = [&](int k, int n) {
-    const int s = k / tile, j = k - s * tile;
-    const int src_tile = cmap != nullptr ? stile[s] : base + s;
-    return bf16_round(load_f(x, (static_cast<size_t>(src_tile) * tile + j) * D + n, x_bf16));
-  };
-  float acc[8][8];
-  zero_acc(acc);
-  block_gemm<false>(acc, tile, D, s_span * tile, la, lb, sm.st);
 
-  const int slot = rg != nullptr ? rg[b / k_grp] : 0;
-  const size_t r0 =
-      (static_cast<size_t>(slot) * k_grp + (b % k_grp)) * tile;  // first row of b in the slot
+  // step 2, chunk j: y += [agg | x_own][:, 32 j' ..] @ [Wl; Wr] rows (wgmma
+  // from shared memory, agg and x_own K-contiguous)
+  auto tail = [&](int j, const __nv_bfloat16* bs, float (&acc)[16][4]) {
+    if (m0 >= tile) return;
+    const __nv_bfloat16* as = j < kd / kChunk ? agg_s : own_s;
+    const int k0 = (j % (kd / kChunk)) * kChunk;
+    wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= tile) continue;
-    const float sc = rs != nullptr ? rs[row0 + r] : 1.0f;
+    for (int kk = 0; kk < 2; ++kk)
+      wgmma_ss_n128<0>(acc, desc_h(as + swz_h(tr, m0, k0 + 16 * kk), tr),
+                       desc_h(bs + swz_h(kChunk, 16 * kk, 0), kChunk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+  };
+
+  auto out_at = [&](int r, int c) {  // element c of row r of out_s
+    const int byte = c * esz;
+    return out_s + r * ldb + (((byte >> 4) ^ (r & 7)) << 4) + (byte & 15);
+  };
+  // this thread's rows at columns (c, c + 1) into out_s
+  auto put = [&](float (&acc)[16][4], int nt) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = acc_col(tx, j);
-      if (c >= D) continue;
-      float v = acc[i][j] * sc;
-      if (slot > 0) v += load_f(r_c, (r0 + r) * D + c, r_bf16);
-      sm.agg[r * kTileMax + c] = __float2bfloat16_rn(v);
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int rr = rw + 8 * h2;
+      if (rr >= tile) continue;
+      unsigned char* at = out_at(rr, nt * 8 + 2 * t);
+      if (p.x_bf16)
+        *reinterpret_cast<uint32_t*>(at) = pack_bf16(acc[nt][2 * h2], acc[nt][2 * h2 + 1]);
+      else
+        *reinterpret_cast<float2*>(at) = make_float2(acc[nt][2 * h2], acc[nt][2 * h2 + 1]);
     }
-  }
-  __syncthreads();
-
-  // 2. y = [agg | x_own] @ [Wl; Wr]
-  auto la2 = [&](int m, int k) {
-    return k < D ? __bfloat162float(sm.agg[m * kTileMax + k])
-                 : bf16_round(load_f(x, (row0 + m) * D + (k - D), x_bf16));
   };
-  auto lb2 = [&](int k, int n) {
-    return __bfloat162float(k < D ? wl[static_cast<size_t>(k) * H + n]
-                                  : wr[static_cast<size_t>(k - D) * H + n]);
-  };
-  zero_acc(acc);
-  block_gemm<false>(acc, tile, H, 2 * D, la2, lb2, sm.st);
-
-  // 3. bias, LayerNorm, activation; row r's H values sit on the 16 lanes
-  // of one half-warp
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = ty + 16 * i;
-    float v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = acc_col(tx, j);
-      v[j] = (c < H && bias != nullptr) ? acc[i][j] + bias[c] : acc[i][j];
-    }
-    if (gamma != nullptr) {
-      float s = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s += acc_col(tx, j) < H ? v[j] : 0.0f;
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      const float mu = s / H;
-      float q = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        v[j] -= mu;
-        q += acc_col(tx, j) < H ? v[j] * v[j] : 0.0f;
+  // out_s's rows to dst's rows row0 ..: 16-byte pieces where the row bytes
+  // allow it, else element by element
+  auto copy_out = [&](void* dst, size_t row0) {
+    __syncthreads();
+    char* g = static_cast<char*>(dst) + row0 * H * esz;
+    if ((H * esz) % 16 == 0 && aligned16(dst)) {
+      const int cpr = H * esz / 16;
+      for (int idx = tid; idx < tile * 32; idx += kFwdThreads) {
+        const int r = idx >> 5, j = idx & 31;
+        if (j < cpr)
+          *reinterpret_cast<uint4*>(g + static_cast<size_t>(r) * H * esz + j * 16) =
+              *reinterpret_cast<const uint4*>(out_at(r, j * 16 / esz));
       }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
-      const float rsd = 1.0f / sqrtf(q / H + eps);
-      if (r < tile && tx == 0) rstd[row0 + r] = rsd;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = acc_col(tx, j);
+    } else {
+      for (int idx = tid; idx < tile * kRow; idx += kFwdThreads) {
+        const int r = idx >> 7, c = idx & (kRow - 1);
         if (c >= H) continue;
-        const float xh = v[j] * rsd;
-        if (r < tile) store_f(xhat, (row0 + r) * H + c, xh, x_bf16);
-        v[j] = xh * gamma[c] + beta[c];
+        const size_t gi = static_cast<size_t>(r) * H + c;
+        if (p.x_bf16)
+          reinterpret_cast<__nv_bfloat16*>(g)[gi] =
+              *reinterpret_cast<const __nv_bfloat16*>(out_at(r, c));
+        else
+          reinterpret_cast<float*>(g)[gi] = *reinterpret_cast<const float*>(out_at(r, c));
       }
     }
-    if (r >= tile) continue;
+  };
+
+  // bias, LayerNorm, activation; acc[nt][2 h2 + e] is row rw + 8 h2, column
+  // 8 nt + 2 t + e, and a row's H values sit on the four threads of a quad
+  auto epi = [&](int, int b, float (&acc)[16][4]) {
+    const size_t row0 = static_cast<size_t>(b) * tile;
+    float s[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = acc_col(tx, j);
-      if (c >= H) continue;
-      float o = v[j];
-      if (has_act && !(o > 0.0f)) o *= slope;
-      store_f(out, (row0 + r) * H + c, o, x_bf16);
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = nt * 8 + 2 * t + e;
+        const float bc = (f.bias != nullptr && c < H) ? __ldg(f.bias + c) : 0.0f;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          acc[nt][2 * h2 + e] += bc;
+          s[h2] += c < H ? acc[nt][2 * h2 + e] : 0.0f;
+        }
+      }
+    __syncthreads();  // both warpgroups' products have read agg_s and own_s
+    if (f.gamma != nullptr) {
+      float q[2] = {0.0f, 0.0f}, rsd[2];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        s[h2] += __shfl_xor_sync(0xffffffffu, s[h2], 1);
+        s[h2] += __shfl_xor_sync(0xffffffffu, s[h2], 2);
+        const float mu = s[h2] / H;
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = acc[nt][2 * h2 + e] - mu;
+            acc[nt][2 * h2 + e] = v;
+            q[h2] += nt * 8 + 2 * t + e < H ? v * v : 0.0f;
+          }
+        q[h2] += __shfl_xor_sync(0xffffffffu, q[h2], 1);
+        q[h2] += __shfl_xor_sync(0xffffffffu, q[h2], 2);
+        rsd[h2] = 1.0f / sqrtf(q[h2] / H + f.eps);
+        if (t == 0 && rw + 8 * h2 < tile) f.rstd[row0 + rw + 8 * h2] = rsd[h2];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) acc[nt][2 * h2 + e] *= rsd[h2];
+        put(acc, nt);  // xhat
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = nt * 8 + 2 * t + e;
+          const float gc = c < H ? __ldg(f.gamma + c) : 0.0f;
+          const float bc = c < H ? __ldg(f.beta + c) : 0.0f;
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) acc[nt][2 * h2 + e] = acc[nt][2 * h2 + e] * gc + bc;
+        }
+      }
+      copy_out(f.xhat, row0);
+      __syncthreads();  // out_s has been read
     }
-  }
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      if (f.has_act)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!(acc[nt][e] > 0.0f)) acc[nt][e] *= f.slope;
+      put(acc, nt);
+    }
+    copy_out(f.out, row0);
+    // the next block's first copy into own_s comes after the loop's next
+    // barrier, when every thread has read out_s
+  };
+
+  float acc[16][4] = {};
+  loop.run(acc, bars, first, mid, tail, epi);
 }
 
 }  // namespace
 
 // a [nb, s_span, tile, tile] int8 (or f32), bo [nb] int32, cmap [nb *
-// s_span] and woff [nb/k_grp] int32 or NULL, rs [nb*tile] f32 or NULL; x [nb*tile, D] bf16 or f32; wl, wr [D, H] bf16; bias, gamma, beta
-// [H] f32 or NULL (gamma: LayerNorm on, and xhat [nb*tile, H] at x's dtype
-// and rstd [nb*tile] f32 are written); r_c [m, k_grp*tile, D] and rg
-// [nb/k_grp] int32 or NULL; out [nb*tile, H] at x's dtype.
+// s_span] and woff [nb/k_grp] int32 or NULL, rs [nb*tile] f32 or NULL; x
+// [nb*tile, D] bf16 or f32; wl, wr [D, H] bf16; bias, gamma, beta [H] f32
+// or NULL (gamma: LayerNorm on, and xhat [nb*tile, H] at x's dtype and rstd
+// [nb*tile] f32 are written); r_c [m, k_grp*tile, D] and rg [nb/k_grp]
+// int32 or NULL; out [nb*tile, H] at x's dtype.
 extern "C" int sage_fwd_launch(const void* a, int a_f32, const void* bo, const void* cmap,
                                const void* woff, const void* rs, int nb,
                                int s_span, int tile, int k_grp, const void* x, int x_bf16, int D,
@@ -172,14 +294,55 @@ extern "C" int sage_fwd_launch(const void* a, int a_f32, const void* bo, const v
                                                rstd == nullptr)) ||
       (rg != nullptr && r_c == nullptr) || !cmap_ok(cmap, woff, s_span, k_grp, nb))
     return SLDM_ERR_SHAPE;
-  const int code = smem_opt_in(sage_fwd_kernel, sizeof(FwdSmem));
+  SlotArgs p{};
+  p.a = a;
+  p.a_kind = a_f32 ? kAF32 : kAInt8;
+  p.amode = kScaleNone;
+  p.bo = static_cast<const int*>(bo);
+  p.cmap = static_cast<const int*>(cmap);
+  p.woff = static_cast<const int*>(woff);
+  p.k = k_grp;
+  p.nb = nb;
+  p.s_span = s_span;
+  p.tile = tile;
+  p.x = x;
+  p.x_bf16 = x_bf16;
+  p.width = D;
+  p.transform = 0;  // f32 x rows are rounded by the element path
+  make_slot_maps(p);
+  TailArgs w{};
+  w.w[0] = static_cast<const __nv_bfloat16*>(wl);
+  w.w[1] = static_cast<const __nv_bfloat16*>(wr);
+  w.wrows = D;
+  w.wcols = H;
+  w.tail = 2 * depth32(D) / kChunk;
+  w.tma_w = make_map(&w.map_w[0], wl, 2, D, H, kChunk, 64, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            make_map(&w.map_w[1], wr, 2, D, H, kChunk, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  FwdArgs f{};
+  f.tma_own = x_bf16 && make_map(&f.map_own, x, 2, static_cast<size_t>(nb) * tile, D, tile, 64,
+                                 CU_TENSOR_MAP_SWIZZLE_128B);
+  f.D = D;
+  f.H = H;
+  f.rs = static_cast<const float*>(rs);
+  f.r_c = r_c;
+  f.r_bf16 = r_bf16;
+  f.rg = static_cast<const int*>(rg);
+  f.k_grp = k_grp;
+  f.bias = static_cast<const float*>(bias);
+  f.gamma = static_cast<const float*>(gamma);
+  f.beta = static_cast<const float*>(beta);
+  f.eps = eps;
+  f.has_act = has_act;
+  f.slope = slope;
+  f.out = out;
+  f.xhat = xhat;
+  f.rstd = static_cast<float*>(rstd);
+  const size_t smem = fwd_smem_bytes(p);
+  int code = smem_opt_in(sage_fwd_kernel, smem);
   if (code != 0) return code;
-  sage_fwd_kernel<<<nb, kThreads, sizeof(FwdSmem), static_cast<cudaStream_t>(stream)>>>(
-      a, a_f32, static_cast<const int*>(bo), static_cast<const int*>(cmap),
-      static_cast<const int*>(woff), nb, static_cast<const float*>(rs), s_span, tile, k_grp,
-      x, x_bf16, D, H, static_cast<const __nv_bfloat16*>(wl),
-      static_cast<const __nv_bfloat16*>(wr), static_cast<const float*>(bias),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta), eps, has_act, slope,
-      r_c, r_bf16, static_cast<const int*>(rg), out, xhat, static_cast<float*>(rstd));
+  int grid = 0;
+  code = persistent_grid(sage_fwd_kernel, kFwdThreads, smem, nb, &grid);
+  if (code != 0) return code;
+  sage_fwd_kernel<<<grid, kFwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(p, w, f);
   return cudaGetLastError();
 }

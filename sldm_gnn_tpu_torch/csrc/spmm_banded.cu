@@ -15,7 +15,7 @@
 // D = 128, bf16 x): bytes, 128.8 MB of A + 51.5 MB of x + 51.5 MB of out
 // (0.069 ms at 3.35 TB/s), over 33 GFLOP (0.033 ms at the bf16 tensor-core
 // rate). The first version ran the products on the f32 FMA units
-// (banded_gemm.cuh's block_gemm: >= 0.49 ms at 67 TFLOP/s), staged every
+// (a block product since removed: >= 0.49 ms at 67 TFLOP/s), staged every
 // element through the caller's loaders with an integer division and a
 // rounding each, as f32, and did not overlap loads with products (one
 // stage). Here (the kernel of slot_spmm.cuh, on banded_mma.cuh's slot loop)

@@ -11,7 +11,7 @@
 // the count tile as 4-byte words along j and the x tile packed four rows to
 // a word (byte q of word (j4, c) is xq[4 j4 + q, c]), then every thread
 // accumulates an 8 x 8 register block (the rows and columns of
-// banded_gemm.cuh) with __dp4a, four products a step. The sums are exact
+// banded_gemm.cuh's acc_col) with __dp4a, four products a step. The sums are exact
 // integers (|counts| <= 127, |xq| <= 127), so the order does not matter;
 // the conversion and the two f32 multiplies run in the JAX order (:505-507)
 // with __fmul_rn, and the plain version (exact sums in f64) agrees bit for

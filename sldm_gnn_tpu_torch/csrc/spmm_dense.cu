@@ -25,7 +25,7 @@
 // a chunk of products ahead of the slot's first copy, so s_max has no bound
 // (a table in shared memory, as the cmap mode keeps, would cap it). bf16
 // tiles arrive under TMA's 64-byte swizzle and are wgmma fragments as they
-// are. The first version ran banded_gemm.cuh's block_gemm: f32 FMAs (>= 0.49
+// are. The first version ran a block product on f32 FMAs (>= 0.49
 // ms of products at 67 TFLOP/s), every element staged with an integer
 // division and a rounding, one stage, one block a destination block.
 #include "slot_spmm.cuh"

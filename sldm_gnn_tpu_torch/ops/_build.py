@@ -217,6 +217,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         getattr(lib, name).restype = i
     lib.knn_topk_launch.argtypes = [p, i, p, i, i, p, p, p]
     lib.knn_topk_launch.restype = i
+    lib.knn_topk_plan.argtypes = [i, pi]  # V, -> warps a point
+    lib.knn_topk_plan.restype = i
     lib.sldm_error_string.argtypes = [i]
     lib.sldm_error_string.restype = ctypes.c_char_p
 

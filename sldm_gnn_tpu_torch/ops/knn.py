@@ -70,6 +70,21 @@ def knn_topk_plain(points: torch.Tensor, centroids: torch.Tensor,
     return torch.sqrt(vals), idx.to(torch.int32)
 
 
+def knn_topk_warps(v: int) -> int:
+    """Warps a point (1, 2, 4 or 8) that :func:`knn_topk_fused` gives ``v``
+    points, as the library's ``knn_topk_plan`` reports it for the current
+    card (``plan`` in ``csrc/knn_topk.cu``), so this builds the library and
+    needs the card."""
+    import ctypes
+
+    from . import _build
+
+    lib = _build.load()
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.knn_topk_plan(v, ctypes.byref(out)), "knn_topk_plan")
+    return out.value
+
+
 def knn_topk_fused(points: torch.Tensor, centroids: torch.Tensor,
                    k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`knn_topk_plain`'s function: the CUDA kernel for CUDA tensors,

@@ -47,8 +47,9 @@ KERNEL_REL = 1e-2
 
 N, TILE, K, D, H = 2000, 64, 4, 16, 24
 # ragged shapes (tile, D, H) of chip_smoke.py's sweep of the tensor-core
-# kernels (spmm_banded, the fused backward): tiles 32 and 128 beside the
-# suite's 64; widths that are not multiples of 16 or 8, D != H, the widest
+# kernels (spmm_banded, the fused forward and backward): tiles 32 and 128
+# beside the suite's 64; widths that are not multiples of 16 or 8, D != H,
+# the widest
 SWEEP = {"t32-d40-h4": (32, 40, 4), "t128-d4-h40": (128, 4, 40),
          "t128-d128-h96": (128, 128, 96)}
 
@@ -99,7 +100,7 @@ def _setup(rng, *, d=D, h=H, tile=TILE):
 
 def _resid_setup(rng, *, d=D, h=H, tile=TILE):
     src, dst = _near_banded_graph(rng)
-    span = 4 * TILE // tile  # the suite's band, in tiles of this size
+    span = max(3, 4 * TILE // tile)  # the suite's band in tiles of this size (tile 128: 3)
     lay, n_pad = tbr.prepare_banded_residual_mean_aggregate(src, dst, N, tile=tile, k=K,
                                                             span=span)
     jl, _ = jbr.prepare_banded_residual_mean_aggregate(src, dst, N, tile=tile, k=K, span=span)
@@ -352,10 +353,19 @@ def test_spmm_banded_plain_matches_pallas(rng, direction, dtype, shape, xdt):
     assert _max_rel(got.float().numpy(), np.asarray(want, np.float32)) < KERNEL_REL
 
 
-@pytest.mark.parametrize("slope,bias,ln", [(None, True, False), (0.1, False, False),
-                                           (0.0, True, True), (0.1, True, True)])
-def test_fused_fwd_plain_matches_pallas(rng, slope, bias, ln):
-    fwd, _, jf, _, a = _setup(rng)
+_FWD_CASES = [(None, True, False, None), (0.1, False, False, None), (0.0, True, True, None),
+              (0.1, True, True, None),
+              (None, True, False, "t32-d40-h4"), (0.1, True, True, "t32-d40-h4"),
+              (0.0, False, False, "t128-d4-h40"), (0.0, True, True, "t128-d4-h40"),
+              (None, True, False, "t128-d128-h96"), (0.1, False, True, "t128-d128-h96")]
+
+
+@pytest.mark.parametrize("slope,bias,ln,shape", _FWD_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}" + (f"-{c[3]}" if c[3] else "")
+                              for c in _FWD_CASES])
+def test_fused_fwd_plain_matches_pallas(rng, slope, bias, ln, shape):
+    tile, d, h = SWEEP[shape] if shape else (TILE, D, H)
+    fwd, _, jf, _, a = _setup(rng, d=d, h=h, tile=tile)
     b = a["b"] if bias else None
     lnt = (_t(a["gamma"]), _t(a["beta"])) if ln else None
     lnj = (jnp.asarray(a["gamma"]), jnp.asarray(a["beta"])) if ln else None
@@ -370,10 +380,19 @@ def test_fused_fwd_plain_matches_pallas(rng, slope, bias, ln):
         assert g.shape == w.shape and _max_rel(g.numpy(), w) < KERNEL_REL
 
 
-@pytest.mark.parametrize("xdt", [np.float32, "bf16"])
-@pytest.mark.parametrize("ln", [False, True])
-def test_fused_fwd_plain_with_residual_matches_pallas(rng, xdt, ln):
-    lay, jl, a = _resid_setup(rng)
+_FWD_RESID_CASES = [(False, np.float32, None), (False, "bf16", None), (True, np.float32, None),
+                    (True, "bf16", None),
+                    (False, "bf16", "t32-d40-h4"), (True, np.float32, "t32-d40-h4"),
+                    (True, "bf16", "t128-d4-h40"), (False, np.float32, "t128-d4-h40"),
+                    (True, "bf16", "t128-d128-h96"), (False, np.float32, "t128-d128-h96")]
+
+
+@pytest.mark.parametrize("ln,xdt,shape", _FWD_RESID_CASES,
+                         ids=[f"{c[0]}-{'bf16' if c[1] == 'bf16' else 'float32'}"
+                              + (f"-{c[2]}" if c[2] else "") for c in _FWD_RESID_CASES])
+def test_fused_fwd_plain_with_residual_matches_pallas(rng, xdt, ln, shape):
+    tile, d, h = SWEEP[shape] if shape else (TILE, D, H)
+    lay, jl, a = _resid_setup(rng, d=d, h=h, tile=tile)
     x = jnp.asarray(a["x"])
     r = jbr.residual_fwd_compact(x, jl)
     if xdt == "bf16":

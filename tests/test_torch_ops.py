@@ -104,11 +104,16 @@ def _knn_inputs(rng, V, S, scale=100.0):
     return pts, cents
 
 
-@pytest.mark.parametrize("V,S,K", [(333, 1000, 5), (7, 57, 5), (64, 300, 17)])
+# beside the first three: one point; S below one warp's width with k = S;
+# S and V about 32 (the lanes of the CUDA kernel's warp); k past 32 (its
+# one-thread route)
+@pytest.mark.parametrize("V,S,K", [(333, 1000, 5), (7, 57, 5), (64, 300, 17), (1, 20, 20),
+                                   (1, 1000, 5), (31, 5, 5), (33, 100, 32), (32, 65, 33)])
 def test_knn_plain_matches_pallas_and_topk(rng, V, S, K):
     pts, cents = _knn_inputs(rng, V, S)
     cents[S // 2] = cents[3]
     cents[S - 1] = cents[3]  # duplicate centroids: lowest-index tie rule
+    cents[3 + 32::32] = cents[3]  # and copies 32 apart (one lane of the CUDA kernel each)
     pts[: V // 3] = cents[3] + rng.standard_normal((V // 3, 2)).astype(np.float32) * 1e-3
     d_pl, i_pl = knn_topk_pallas(jnp.asarray(pts), jnp.asarray(cents), K, interpret=True)
     d_tk, i_tk = jax_knn_topk(jnp.asarray(pts), jnp.asarray(cents), K)
