@@ -78,7 +78,12 @@ launch count set to 0 just before a path and read just after it:
   * after the GRU checks, a sweep of ``gru_fwd`` (h_last and seq) and
     ``gru_fwd_sg`` at N of 1 to 19 558, H of 16, 40, 96, 128 and each D's
     widest, D of 6, 96 and 128, against their plain versions, with the
-    kernel each width routes to (tensor cores or FMA) printed.
+    kernel each width routes to (tensor cores or FMA) printed; then the
+    backwards' sweep (``check_gru_bwd_sweep``) at D 6, 40, 128 and 160.
+
+``python3 chip_smoke.py --gru-bwd-ms`` only times both GRU backwards at a
+stack's upper layer (the flagship's rows, D=H=128), so a copy of this file
+in a checkout of an earlier version times that version at the same inputs.
 
 Times are the card's: where the host takes about as long to launch a call
 as the card to run it (the k-NN and GRU kernels and their library calls at
@@ -628,18 +633,6 @@ def check_gru_training_kernels(gru_cuda, gen, dev) -> list[dict]:
                 lambda: gru_cuda.gru_bwd_sg_plain(xs, hs_s, gates_s, w[0], w[2], gs,
                                                   seq_cot=seq), shape)
 
-    # the backward with its partial dW_hh in shared memory (where it fits:
-    # the default at H=96) and in the workspace, in turns
-    placed = {True: [], False: []}
-    for dw in (True, False, False, True):
-        placed[dw].append((
-            timed(lambda: gru_cuda._gru_bwd(x, hs, *w, g, False, False, dw), iters=5)[0],
-            timed(lambda: gru_cuda._gru_bwd_sg(x, hs, gates, w[0], w[2], g, False, False, dw),
-                  iters=5)[0]))
-    for dw, label in ((True, "shared memory"), (False, "workspace (L2)")):
-        log(f"gru_bwd / gru_bwd_sg N={n} H={HIDDEN}, partial dW_hh in {label}: "
-            + ", ".join(f"{a:.4f} / {b:.4f} ms" for a, b in placed[dw]))
-
     # times at the flagship shape
     fwd_ms, fwd_host = timed(lambda: gru_cuda.gru_fwd_sg(x, *w), iters=10)
     bwd_ms, bwd_host = timed(lambda: gru_cuda.gru_bwd(x, hs, *w, g, with_dx=False), iters=5)
@@ -757,19 +750,18 @@ def check_gru_widths(gru_cuda, gen, dev) -> None:
 
     lib = _build.load()
 
-    def bwd_takes(grid, d, dw_smem):
+    def bwd_takes(grid, d):
         def takes(h):
-            place, blocks = ctypes.c_int(dw_smem), ctypes.c_int(0)
-            return getattr(lib, grid)(1, d, h, ctypes.byref(place), ctypes.byref(blocks)) == 0
+            nbytes = ctypes.c_int64(0)
+            return getattr(lib, grid)(1, FRAMES, d, h, ctypes.byref(nbytes)) == 0
         return takes
 
     out = []
     for d in (FEATURES, 128):
         out.append(f"D={d}: gru_fwd {widest(fwd_takes(gru_cuda.gru_fwd, d), 512)}, gru_fwd_sg "
                    f"{widest(fwd_takes(gru_cuda.gru_fwd_sg, d), 512)}, gru_bwd "
-                   f"{widest(bwd_takes('gru_bwd_grid', d, -1), 341)} (partial dW_hh in shared "
-                   f"memory up to {widest(bwd_takes('gru_bwd_grid', d, 1), 341)}), gru_bwd_sg "
-                   f"{widest(bwd_takes('gru_bwd_sg_grid', d, -1), 341)}")
+                   f"{widest(bwd_takes('gru_bwd_grid', d), 341)}, gru_bwd_sg "
+                   f"{widest(bwd_takes('gru_bwd_sg_grid', d), 341)}")
     log("widest H each GRU kernel takes on this card: " + "; ".join(out))
 
 
@@ -853,6 +845,156 @@ def check_gru_sweep(gru_cuda, dev) -> int:
         f"{GRU_SWEEP_D}) within {GRU_ATOL} of the plain versions, worst "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
         + f"; two launches bit-equal, sg hs bit-equal to gru_fwd's; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return n_cases
+
+
+# the backward kernels' sweep: row counts around the 64-row tile and a
+# training batch, hidden widths padded to 32 by the tensor-core route (20,
+# 33 and 100 are not multiples of 8: hs and the gates are read pair by pair,
+# 33 element by element) and each route's widest, D of 6 (the features) and
+# 128 (a stack's upper layer); D 40 (three k-steps: the recomputing
+# backward streams W_ih^T at Hp = 128 for D > 16, an odd count through its
+# two stages) and 160 (past the tensor-core route: the FMA kernel, both
+# versions) at fewer widths; each (version, D, H) takes h_last's and the
+# per-frame cotangent, with dx and without, across its row counts; and the
+# flagship's rows at two shapes
+GRU_BWD_SWEEP_N = (1, 37, 63, 64, 65, 2000)
+GRU_BWD_SWEEP_H = (16, 20, 33, 96, 100, 128)
+GRU_BWD_SWEEP_D = (6, 40, 128, 160)
+GRU_BWD_SWEEP_H_AT = {40: (100, 128), 160: (16, 96, 128)}  # D: its widths, if not all
+GRU_BWD_COMBOS = ((False, False), (True, True), (False, True), (True, False))  # (seq, dx)
+# the widest H each backward took before the tensor-core route came (ROADMAP
+# "Limits"); none may stop working. Every H <= 128 runs at every D swept.
+GRU_BWD_WIDEST = {False: {6: 170, 128: 166}, True: {6: 128, 128: 128}}
+
+
+def time_gru_bwd(gru_cuda, x, w, hs, gates, gs) -> None:
+    """Logs both backwards' ms (CUDA events, 5 calls) at these inputs, with
+    the per-frame cotangent and dx."""
+    n, _, d = x.shape
+    h = hs.shape[-1]
+    ms = [timed(lambda: gru_cuda.gru_bwd(x, hs, *w, gs, seq_cot=True, with_dx=True), 5)[0],
+          timed(lambda: gru_cuda.gru_bwd_sg(x, hs, gates, w[0], w[2], gs, seq_cot=True,
+                                            with_dx=True), 5)[0]]
+    route = (gru_cuda.FWD_ROUTES[gru_cuda.gru_bwd_route(d, h)]
+             if hasattr(gru_cuda, "gru_bwd_route") else "route not reported")
+    log(f"gru backward N={n} D={d} H={h} per-frame cotangent, dx: gru_bwd ({route}) "
+        f"{ms[0]:.4f} ms, gru_bwd_sg {ms[1]:.4f} ms (CUDA events, 5 calls)")
+
+
+def gru_bwd_upper_layer(dev) -> None:
+    """`python3 chip_smoke.py --gru-bwd-ms`: only time_gru_bwd at the
+    flagship's rows, D=128, H=128 (a stack's upper layer), on the
+    sldm_gnn_tpu_torch beside this file; so a checkout of an earlier
+    version can be timed by this script at the same inputs."""
+    from sldm_gnn_tpu_torch.ops import gru_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((flagship_rows(np.random.default_rng(SEED)), FRAMES, 128), generator=gen,
+                    device=dev)
+    w = gru_weights(torch.Generator().manual_seed(SEED), 128, 128, dev)
+    hs, gates = gru_cuda.gru_fwd_sg(x, *w)
+    gs = torch.randn((x.shape[0], FRAMES, 128), generator=gen, device=dev)
+    time_gru_bwd(gru_cuda, x, w, hs, gates, gs)
+
+
+def bwd_tc_expected(d: int, h: int, stored: bool) -> bool:
+    """Whether csrc/gru_bwd.cuh's rule should send (d, h) to the tensor
+    cores: every H <= 128 at D <= 128, both versions; wider H or D take the
+    FMA kernel."""
+    return h <= 128 and d <= 128
+
+
+def check_gru_bwd_sweep(gru_cuda, dev) -> int:
+    """gru_bwd and gru_bwd_sg against their plain versions at GRAD_RTOL of
+    max|g| per output, two launches bit-equal, on every case of the sweep;
+    prints each backward's routes (csrc/gru_bwd.cuh's rule,
+    gru_cuda.gru_bwd_route), checks that H <= 128 takes the tensor cores
+    (bwd_tc_expected) and that no width of GRU_BWD_WIDEST stopped working.
+    Returns the number of cases held."""
+    widest = {}
+    for stored in (False, True):
+        name = "gru_bwd_sg" if stored else "gru_bwd"
+        for d in GRU_BWD_SWEEP_D:
+            routes = {h: gru_cuda.gru_bwd_route(d, h, stored=stored) for h in range(1, 342)}
+            log(f"{name} route at D={d}: H " + route_ranges(
+                lambda dd, h: gru_cuda.FWD_ROUTES[routes[h]], d, 341))
+            runs = [h for h, r in routes.items() if r >= 0]
+            widest[stored, d] = sorted({max(h for h in runs if routes[h] == r)
+                                        for r in (0, 1) if any(routes[h] == r for h in runs)})
+            bad = [h for h in range(1, 129) if (routes[h] == 1) != bwd_tc_expected(d, h, stored)]
+            want = max(128, GRU_BWD_WIDEST[stored].get(d, 0))
+            if bad or max(runs) < want or any(routes[h] < 0 for h in range(1, max(runs) + 1)):
+                raise AssertionError(f"{name} route at D={d}: H {bad} off the expected route, or "
+                                     f"the widest H {max(runs)} below {want}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    wgen = torch.Generator().manual_seed(SEED)
+    worst = {False: 0.0, True: 0.0}
+    n_cases = 0
+
+    def hold(stored, x, w, hs, gates, gs, seq, with_dx, what):
+        nonlocal n_cases
+        if stored:
+            run = lambda: gru_cuda.gru_bwd_sg(x, hs, gates, w[0], w[2], gs, seq_cot=seq,
+                                              with_dx=with_dx)
+            want = gru_cuda.gru_bwd_sg_plain(x, hs, gates, w[0], w[2], gs, seq_cot=seq,
+                                             with_dx=with_dx)
+        else:
+            run = lambda: gru_cuda.gru_bwd(x, hs, *w, gs, seq_cot=seq, with_dx=with_dx)
+            want = gru_cuda.gru_bwd_plain(x, hs, *w, gs, seq_cot=seq, with_dx=with_dx)
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        errs = grad_errors(got, want)
+        stable = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+        finite = all(torch.isfinite(a).all() for a in got if a is not None)
+        if max(errs) > GRAD_RTOL or not (stable and finite):
+            raise AssertionError(
+                f"{'gru_bwd_sg' if stored else 'gru_bwd'} sweep {what}: max|err|/max|g| per "
+                f"output {['%.2e' % e for e in errs]} (tol {GRAD_RTOL}), two launches bit-equal "
+                f"{stable}, finite {finite}")
+        worst[stored] = max(worst[stored], max(errs))
+        n_cases += 1
+
+    t0 = time.perf_counter()
+    for d in GRU_BWD_SWEEP_D:
+        xall = torch.randn((max(GRU_BWD_SWEEP_N), FRAMES, d), generator=gen, device=dev)
+        for stored in (False, True):
+            for h in sorted(set(GRU_BWD_SWEEP_H_AT.get(d, GRU_BWD_SWEEP_H))
+                            | set(widest[stored, d])):
+                w = gru_weights(wgen, d, h, dev)
+                # hs and gates from the forward kernel, or where no forward
+                # kernel takes the width (the backward's widest), its plain version
+                fwd = (gru_cuda.gru_fwd_sg if gru_cuda.gru_fwd_route(d, h) >= 0
+                       else gru_cuda.gru_fwd_sg_plain)
+                route = gru_cuda.FWD_ROUTES[gru_cuda.gru_bwd_route(d, h, stored=stored)]
+                for i, n in enumerate(GRU_BWD_SWEEP_N):
+                    seq, with_dx = GRU_BWD_COMBOS[i % len(GRU_BWD_COMBOS)]
+                    x = xall[:n]
+                    hs, gates = fwd(x, *w)
+                    gs = torch.randn((n, FRAMES, h) if seq else (n, h), generator=gen,
+                                     device=dev)
+                    hold(stored, x, w, hs, gates, gs, seq, with_dx,
+                         f"N={n} D={d} H={h} ({route}) {'per-frame' if seq else 'h_last'} "
+                         f"cotangent, dx {with_dx}")
+        del xall
+    n = flagship_rows(np.random.default_rng(SEED))
+    for d, h, seq, with_dx in ((FEATURES, HIDDEN, False, False), (128, 128, True, True)):
+        x = torch.randn((n, FRAMES, d), generator=gen, device=dev)
+        w = gru_weights(wgen, d, h, dev)
+        hs, gates = gru_cuda.gru_fwd_sg(x, *w)
+        gs = torch.randn((n, FRAMES, h) if seq else (n, h), generator=gen, device=dev)
+        for stored in (False, True):
+            hold(stored, x, w, hs, gates, gs, seq, with_dx,
+                 f"N={n} D={d} H={h} {'per-frame' if seq else 'h_last'} cotangent, dx {with_dx}")
+        if d == 128:  # a stack's upper layer; gru_bwd streams W_ih^T here
+            time_gru_bwd(gru_cuda, x, w, hs, gates, gs)
+        del x, hs, gates, gs
+    log(f"gru backward sweep: {n_cases} cases (N {GRU_BWD_SWEEP_N} and {n}, H {GRU_BWD_SWEEP_H} "
+        f"(at D 40 and 160: {GRU_BWD_SWEEP_H_AT}) + each route's widest, D {GRU_BWD_SWEEP_D}, "
+        f"both cotangents, dx on and off) within "
+        f"{GRAD_RTOL} of max|g| of the plain versions, worst gru_bwd {worst[False]:.3e}, "
+        f"gru_bwd_sg {worst[True]:.3e}; two launches bit-equal; "
         f"{time.perf_counter() - t0:.1f} s")
     return n_cases
 
@@ -1177,8 +1319,12 @@ def profile_steps(run_step, label: str, keys: tuple[str, ...], steps: int = 3) -
         f"per step by kernel: " + "; ".join(f"{k} {v:.3f}" for k, v in top))
 
 
-GRU_KERNEL_KEYS = ("gru_fwd_tc_kernel", "gru_fwd_fma_kernel", "gru_bwd_kernel", "gru_bwd_reduce",
-                   "knn_topk_kernel")
+# gru_bwd_tc_kernel, gru_dw_kernel (+ gru_dw_reduce) and gru_dx_kernel: the
+# backward's tensor-core route (csrc/gru_bwd.cuh); gru_bwd_kernel (+
+# gru_bwd_reduce) its FMA kernel for wide H
+GRU_KERNEL_KEYS = ("gru_fwd_tc_kernel", "gru_fwd_fma_kernel", "gru_bwd_tc_kernel",
+                   "gru_dw_kernel", "gru_dw_reduce", "gru_dx_kernel", "gru_bwd_kernel",
+                   "gru_bwd_reduce", "knn_topk_kernel")
 # slot_spmm_kernel: spmm_banded's and spmm_dense's kernel (csrc/slot_spmm.cuh)
 BANDED_KERNEL_KEYS = ("slot_spmm_kernel", "sage_fwd_kernel", "sage_bwd_kernel",
                       "sage_dw_kernel", "ln_bwd_prologue_kernel", "reduce_partials_kernel")
@@ -2544,6 +2690,107 @@ def check_ragged_sweep(mods: dict, dev) -> int:
 DENSE_SWEEP_WIDTHS = (4, 40, 96, 128)
 
 
+# the int8 banded kernel's sweep: tiles 32/64/128, D 4 (the element path:
+# rows of 4 bytes), 40 (not a multiple of 16: the element path) and 128
+# (TMA), source bands of 1, 5 and 9 tiles, a ragged node count; and the
+# exactness case (int8_exact_counts). Every case bit-equal to the plain
+# version.
+INT8_SWEEP_NODES = 2999
+INT8_SWEEP_WIDTHS = (4, 40, 128)
+INT8_SWEEP_SPANS = (1, 5, 9)
+INT8_EXACT_SOURCES = 1152
+
+
+def int8_exact_counts() -> np.ndarray:
+    """The exactness case: how many times one row takes each of 1152
+    sources (9 tiles of 128), with xq = 127 everywhere. Every count is 124
+    (a multiple of 4) but source 1087's, 123, and the last one's, 126: the
+    sum up to source 1087 is odd and past 2^24, the rest adds 2 mod 4, so
+    the exact sum (18141823) rounds once to a multiple of 4 while a sum in
+    f32 rounds at 1087 and ends 2 off (int8_f32_sums_differ)."""
+    c = np.full(INT8_EXACT_SOURCES, 124, np.int64)
+    c[1087], c[-1] = 123, 126
+    return c
+
+
+def int8_f32_sums_differ(contrib: np.ndarray, groups=(1, 16, 32, 64)) -> bool:
+    """Whether an f32 accumulator that adds the exact sums of `g`
+    consecutive terms in order, for every g in `groups`, ends away from
+    the correctly rounded sum of `contrib`: a check that the exactness
+    case tells an s32 sum from an f32 one."""
+    want = np.float32(int(contrib.sum()))
+    for g in groups:
+        acc = np.float32(0)
+        for i in range(0, len(contrib), g):
+            acc = np.float32(acc + np.float32(int(contrib[i:i + g].sum())))
+        if acc == want:
+            return False
+    return True
+
+
+def check_int8_sweep(mods: dict, dev) -> int:
+    """spmm_banded_int8 against its plain version, bit for bit, and two
+    launches bit-equal, on INT8_SWEEP's cases; returns the number held."""
+    tsb, tq = mods["spmm_banded"], mods["quant"]
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    n_cases = 0
+
+    def hold(what, lay, xq, scale):
+        nonlocal n_cases
+        got, again = (tsb.spmm_banded_int8(xq, scale, lay) for _ in range(2))
+        want = tsb.spmm_banded_int8_plain(xq, scale, lay)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(
+                f"int8 sweep: {what}: max|err| {(got - want).abs().max().item():.3e}, "
+                f"two launches bit-equal {torch.equal(got, again)} (must be bit-equal)")
+        n_cases += 1
+        return got
+
+    t0 = time.perf_counter()
+    n = INT8_SWEEP_NODES
+    for tile in SWEEP_TILES:
+        nb = -(-n // tile)
+        for span in INT8_SWEEP_SPANS:
+            # sources within span // 2 tiles of the destination's, clipped at
+            # the ends; one interior row reaches both ends of its band
+            dst = rng.integers(0, n, n * SWEEP_DEG)
+            dst[:2] = (nb // 2) * tile
+            off = rng.integers(-(span // 2), span // 2 + 1, len(dst))
+            off[:2] = (-(span // 2), span // 2)
+            src = np.clip(dst // tile + off, 0, nb - 1) * tile + rng.integers(0, tile, len(dst))
+            src = np.minimum(src, n - 1)
+            fwd, _, n_pad = tsb.prepare_banded_mean_aggregate(src, dst, n, tile=tile, k=1)
+            if fwd.s_span != span:
+                raise AssertionError(f"int8 sweep: tile {tile} band {span}: s_span {fwd.s_span}")
+            lay = fwd.to(dev)
+            for d in INT8_SWEEP_WIDTHS:
+                xq, scale = tq.quantize_tensor_xla(torch.randn((n_pad, d), generator=gen).to(dev))
+                hold(f"tile {tile} s_span {span} D {d} (nb {nb})", lay, xq, scale)
+    # the exactness case
+    tile = BANDED_TILE
+    counts = int8_exact_counts()
+    src = np.repeat(np.arange(INT8_EXACT_SOURCES, dtype=np.int64), counts)
+    dst = np.full(len(src), INT8_EXACT_SOURCES // 2, np.int64)
+    fwd, _, n_pad = tsb.prepare_banded_mean_aggregate(src, dst, INT8_EXACT_SOURCES, tile=tile,
+                                                      k=1)
+    xq = torch.full((n_pad, BENCH_DIM), 127, dtype=torch.int8, device=dev)
+    scale = torch.ones(1, device=dev)
+    got = hold(f"exactness, tile {tile} s_span {fwd.s_span}", fwd.to(dev), xq, scale)
+    total = int(counts.sum()) * 127
+    want = np.float32(total) * np.float32(fwd.row_scale[INT8_EXACT_SOURCES // 2, 0].item())
+    if (fwd.s_span != 9 or got[INT8_EXACT_SOURCES // 2, 0].item() != want
+            or not int8_f32_sums_differ(counts * 127)):
+        raise AssertionError(f"int8 sweep: exactness case {got[INT8_EXACT_SOURCES // 2, 0].item()} "
+                             f"!= {want} (sum {total}, s_span {fwd.s_span}), or the case does not "
+                             f"tell an f32 sum from an exact one")
+    log(f"int8 sweep: {n_cases} cases (tiles {SWEEP_TILES}, D {INT8_SWEEP_WIDTHS}, s_span "
+        f"{INT8_SWEEP_SPANS}, {n} nodes; the exactness case, sum {total} > 2^24) bit-equal to "
+        f"the plain version, two launches bit-equal; {time.perf_counter() - t0:.1f} s")
+    return n_cases
+
+
 def check_dense_sweep(mods: dict, dev) -> int:
     """spmm_dense against its plain version on ragged shapes: tiles 32, 64
     and 128 of a small local graph, D in DENSE_SWEEP_WIDTHS, int8, f32 and
@@ -2632,6 +2879,9 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    if sys.argv[1:] == ["--gru-bwd-ms"]:
+        gru_bwd_upper_layer(dev)
+        return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip()
@@ -2654,6 +2904,7 @@ def main() -> int:
     train_entries = check_gru_training_kernels(gru_cuda, gen, dev)
     check_gru_widths(gru_cuda, gen, dev)
     check_gru_sweep(gru_cuda, dev)
+    check_gru_bwd_sweep(gru_cuda, dev)
     torch.cuda.empty_cache()
 
     mods = {"gru_cuda": gru_cuda, "knn_ops": knn_ops, "spmm_banded": spmm_banded,
@@ -2681,6 +2932,7 @@ def main() -> int:
 
     check_ragged_sweep(mods, dev)
     check_dense_sweep(mods, dev)
+    check_int8_sweep(mods, dev)
     resid, pure, n_pad, graph = banded_layouts(mods, dev)
     banded_entries = check_banded_kernels(mods, resid, pure, graph, gen, dev)
     torch.cuda.empty_cache()

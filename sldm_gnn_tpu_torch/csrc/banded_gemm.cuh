@@ -1,10 +1,8 @@
 // The helpers every graph kernel includes: element loads and stores, the
 // ordered reduction of per-block partials, the shapes the banded kernels
-// take, the shared-memory opt-in, and the 8 x 8 register block of a
-// 256-thread block over a 128 x 128 output tile (spmm_banded_int8.cu).
-// The banded products themselves run on the tensor cores
-// (banded_mma.cuh: spmm_banded.cu, spmm_dense.cu, sage_fused_fwd.cu and
-// sage_fused_bwd.cu).
+// take and the shared-memory opt-in. The banded products themselves run on
+// the tensor cores (banded_mma.cuh: spmm_banded.cu, spmm_dense.cu,
+// sage_fused_fwd.cu, sage_fused_bwd.cu and spmm_banded_int8.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,10 +33,6 @@ __device__ __forceinline__ void store_f(void* p, size_t i, float v, int is_bf16)
   else
     static_cast<float*>(p)[i] = v;
 }
-
-// The register block: thread tid = 16 ty + tx holds rows ty + 16 i and
-// columns acc_col(tx, j), i, j < 8, of a 128 x 128 tile.
-__device__ __forceinline__ int acc_col(int tx, int j) { return 4 * tx + 64 * (j >> 2) + (j & 3); }
 
 // out[e] = sum over p, in order, of partial[p * n + e]: the ordered second
 // pass of a reduction across blocks (no atomics, so launches repeat bits)

@@ -1,7 +1,8 @@
 // The tensor-core slot loop shared by the SpMM kernel of slot_spmm.cuh
-// (spmm_banded.cu, spmm_dense.cu), the fused forward of sage_fused_fwd.cu
-// and the reverse kernel of sage_fused_bwd.cu, and the PTX building blocks
-// they use.
+// (spmm_banded.cu, spmm_dense.cu), the fused forward of sage_fused_fwd.cu,
+// the reverse kernel of sage_fused_bwd.cu and the int8 banded kernel of
+// spmm_banded_int8.cu (SlotLoop's kI8 mode, below), and the PTX building
+// blocks they use.
 //
 // A block of two warpgroups accumulates an output tile of at most 128 x 128
 // f32 sums, acc = sum_s A[b, s] @ B[src(b, s)], with wgmma m64n128k16 on
@@ -33,6 +34,13 @@
 //   * rows whose byte width is not a multiple of 16, and operands that are
 //     not 16-byte aligned, which TMA cannot take, load by an element path in
 //     the same kernel.
+// With kI8 (int8 features, exact int32 sums) the product is transposed,
+// out^T = xq^T A^T, by wgmma m64n128k32 on s8 operands: the count chunk as
+// it lies is B (K-major, TMA's 32-byte swizzle, which wgmma reads as it is;
+// s8 operands have no transpose bit), and xq's 32 staged rows (128 bytes
+// each under TMA's 128-byte swizzle) become A's fragments in registers by
+// byte permutes: warpgroup w takes the features 64 w ..., N the tile's rows
+// (rows past the tile multiply as whatever lies there and are dropped).
 // A persistent block walks destination blocks blockIdx.x, + gridDim.x, ...
 // as one stream of chunks, so the next block's copies are in flight while
 // the caller's epilogue runs. Slot s of block b reads source tile bo[b] + s
@@ -137,6 +145,46 @@ __device__ __forceinline__ void pin(float (&v)[R][4]) {
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(v[i][e])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void pin(int (&v)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(v[i][e])::"memory");
+}
+
+// d[16][4] += a @ B on s8 operands, s32 sums (wgmma m64n128k32: A from
+// registers, mma.sync's m16n8k32 fragment layout a warp; B from shared
+// memory, K-major). Integer sums are exact. Asynchronous, as wgmma_n128.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[16][4], const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+        "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+        "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+        "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+        "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+        "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+        "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+        "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+        "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 // d[16][4] += a @ B (wgmma m64n128k16: A from registers, each warp 16 rows
@@ -253,6 +301,21 @@ __device__ __forceinline__ uint64_t desc_h(const __nv_bfloat16* at, int rows) {
   const uint64_t a = smem_u32(at);
   return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>((rows * 128) >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma descriptor of a K-major s8 tile of 32-byte rows under the 32-byte
+// swizzle (an int8 count chunk as TMA or a8_off lays it): 8-row groups 256
+// bytes apart
+__device__ __forceinline__ uint64_t desc_k32(const void* at) {
+  const uint64_t a = smem_u32(at);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(256 >> 4) << 32) |
+         (3ull << 62);
+}
+
+// byte offset of (r, c) in a staged int8 row chunk of 128-byte rows (TMA's
+// 128-byte swizzle: the 16-byte pieces XOR-swizzled by r % 8)
+__device__ __forceinline__ int x8_off(int r, int c) {
+  return r * kRow + ((((c >> 4) ^ r) & 7) << 4) + (c & 15);
 }
 
 // byte offset of (r, c) in an int8 chunk of 32 columns (two pieces a row,
@@ -407,7 +470,7 @@ struct SlotArgs {
   const int* woff;  // [nb / k] with cmap
   const int* src;   // [nb * s_span] source tiles as given (< nb): SlotLoop's kSrc
   int k, nb, s_span, tile;
-  const void* x;  // B: [nb * tile, width] bf16 (x_bf16) or f32
+  const void* x;  // B: [nb * tile, width] bf16 (x_bf16), f32, or int8 (SlotLoop's kI8)
   int x_bf16, width;
   const float* cs;    // [nb * tile] per source row, or NULL
   const float* rstd;  // [nb * tile] per source row, or NULL
@@ -435,35 +498,45 @@ __host__ __device__ inline int depth32(int w) { return (w + 31) / 32 * 32; }
 __host__ __device__ inline int tile_rows64(int tile) { return (tile + 63) / 64 * 64; }
 
 // the slot loop's maps: A's chunks (rows of 32, 64 or 128 bytes for int8,
-// bf16 or f32, each under the swizzle of its width) and B's rows
-inline void make_slot_maps(SlotArgs& p) {
+// bf16 or f32, each under the swizzle of its width) and B's rows (int8,
+// x_i8: one box of 32 rows of 128 bytes, columns past the width read as 0).
+// A kI8 loop's client asks SlotLoop::make_maps / ring_bytes, which pass it.
+inline void make_slot_maps(SlotArgs& p, bool x_i8 = false) {
   const size_t a_rows = static_cast<size_t>(p.nb) * p.s_span * p.tile;
   p.tma_a = make_map(&p.map_a, p.a, a_elem_bytes(p.a_kind), a_rows, p.tile, p.tile, kChunk,
                      p.a_kind == kAF32    ? CU_TENSOR_MAP_SWIZZLE_128B
                      : p.a_kind == kABf16 ? CU_TENSOR_MAP_SWIZZLE_64B
                                           : CU_TENSOR_MAP_SWIZZLE_32B);
-  p.tma_x = (p.transform || p.x_bf16) &&
-            make_rows_map(&p.map_x, p.x, p.x_bf16, static_cast<size_t>(p.nb) * p.tile, p.width,
-                          kChunk, p.transform != 0);
+  const size_t x_rows = static_cast<size_t>(p.nb) * p.tile;
+  if (x_i8)
+    p.tma_x = make_map(&p.map_x, p.x, 1, x_rows, p.width, kChunk, kRow,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  else
+    p.tma_x = (p.transform || p.x_bf16) &&
+              make_rows_map(&p.map_x, p.x, p.x_bf16, x_rows, p.width, kChunk, p.transform != 0);
 }
 
 __host__ __device__ inline int slot_a_bytes(int tile, int a_kind) {
   return tile * kChunk * a_elem_bytes(a_kind);
 }
 
-__host__ __device__ inline int slot_b_bytes(int x_bf16, int transform) {
-  return kChunk * kRow * (transform && !x_bf16 ? 4 : 2);
+__host__ __device__ inline int slot_b_bytes(int x_bf16, int transform, int x_i8) {
+  return kChunk * kRow * (x_i8 ? 1 : transform && !x_bf16 ? 4 : 2);
 }
 
-__host__ __device__ inline int slot_stage_bytes(int tile, int a_kind, int x_bf16, int transform) {
-  const int n = slot_a_bytes(tile, a_kind) + slot_b_bytes(x_bf16, transform) + kVecFloats * 4;
+__host__ __device__ inline int slot_stage_bytes(int tile, int a_kind, int x_bf16, int transform,
+                                                int x_i8) {
+  const int n =
+      slot_a_bytes(tile, a_kind) + slot_b_bytes(x_bf16, transform, x_i8) + kVecFloats * 4;
   return (n + 1023) / 1024 * 1024;  // B's halves stay 1024-byte aligned
 }
 
 // bytes of the ring and of the transformed-B tile (the caller adds 1024 to
 // align the ring's start)
-__host__ __device__ inline size_t slot_ring_bytes(int nst, const SlotArgs& p) {
-  return static_cast<size_t>(nst) * slot_stage_bytes(p.tile, p.a_kind, p.x_bf16, p.transform) +
+__host__ __device__ inline size_t slot_ring_bytes(int nst, const SlotArgs& p,
+                                                  bool x_i8 = false) {
+  return static_cast<size_t>(nst) *
+             slot_stage_bytes(p.tile, p.a_kind, p.x_bf16, p.transform, x_i8) +
          (p.transform ? kChunk * kRow * 2 : 0);
 }
 
@@ -483,11 +556,17 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* smem) {
 // its branches); warpgroup w at rows 64 w; warp v of a warpgroup holds
 // rows 16 v + g and + 8 of its 64 (g = lane / 4, t = lane % 4): acc[j][e]
 // is row 16 v + g + 8 (e / 2), column 8 j + 2 t + e % 2 of the
-// warpgroup's tile.
-template <int NST, bool kTail = false, bool kSrc = false>
+// warpgroup's tile. With kI8 (int8 B, s32 acc) the tile is transposed:
+// acc[j][e] is tile row 8 j + 2 t + e % 2 and feature x8_feature(e / 2).
+template <int NST, bool kTail = false, bool kSrc = false, bool kI8 = false>
 struct SlotLoop {
   static constexpr int kNT = 16;  // n-tiles of 8 columns
   static constexpr int kThreads = 256;
+  // the ring's bytes and the maps for this loop's mode (the host's view of kI8)
+  __host__ __device__ static size_t ring_bytes(const SlotArgs& a) {
+    return slot_ring_bytes(NST, a, kI8);
+  }
+  static void make_maps(SlotArgs& a) { make_slot_maps(a, kI8); }
   const SlotArgs& p;
   const TailArgs* tl;  // with kTail
   unsigned char* ring;
@@ -504,9 +583,9 @@ struct SlotLoop {
   __device__ SlotLoop(const SlotArgs& args, unsigned char* ring_1024, int* tab,
                       const TailArgs* tail_args = nullptr)
       : p(args), tl(tail_args), ring(ring_1024), table(tab) {
-    stage_bytes = slot_stage_bytes(p.tile, akind(), p.x_bf16, p.transform);
+    stage_bytes = slot_stage_bytes(p.tile, akind(), p.x_bf16, p.transform, kI8);
     a_bytes = slot_a_bytes(p.tile, akind());
-    b_bytes = slot_b_bytes(p.x_bf16, p.transform);
+    b_bytes = slot_b_bytes(p.x_bf16, p.transform, kI8);
     bfb = reinterpret_cast<__nv_bfloat16*>(ring + NST * stage_bytes);
     cpt = p.tile / kChunk;
     C = p.s_span * cpt;
@@ -618,13 +697,15 @@ struct SlotLoop {
     if (tid == 0) {
       const int halves = p.width > 64 ? 2 : 1;
       uint32_t tx = p.tma_a ? a_bytes : 0;
-      if (p.tma_x) tx += p.transform ? kChunk * kRow * (p.x_bf16 ? 2 : 4) : halves * kChunk * 128;
+      if (p.tma_x)
+        tx += kI8 ? kChunk * kRow
+                  : p.transform ? kChunk * kRow * (p.x_bf16 ? 2 : 4) : halves * kChunk * 128;
       for (int v = 0; v < 2; ++v)
         if (vs[v] != nullptr && aligned16(vs[v])) tx += kChunk * 4;
       mbar_expect(&full[ist], tx);
       if (p.tma_a) tma_load(st, &p.map_a, j0, arow, &full[ist]);
       if (p.tma_x)
-        for (int h = 0; h < (p.transform ? 1 : halves); ++h)
+        for (int h = 0; h < (p.transform || kI8 ? 1 : halves); ++h)
           tma_load(st + a_bytes + h * kChunk * 128, &p.map_x, 64 * h, static_cast<int>(r0),
                    &full[ist]);
       for (int v = 0; v < 2; ++v)
@@ -646,9 +727,16 @@ struct SlotLoop {
               static_cast<const int8_t*>(p.a)[tile0 + r * p.tile + c];
       }
     }
-    if (!p.tma_x)  // (f32 rows without a pass are rounded here)
+    if (!p.tma_x && kI8) {  // the columns past the width are zeroed, as TMA does
+      for (int idx = tid; idx < kChunk * kRow; idx += kThreads) {
+        const int r = idx >> 7, c = idx & (kRow - 1);
+        st[a_bytes + x8_off(r, c)] =
+            c < p.width ? static_cast<const unsigned char*>(p.x)[(r0 + r) * p.width + c] : 0;
+      }
+    } else if (!p.tma_x) {  // (f32 rows without a pass are rounded here)
       load_rows(st + a_bytes, p.transform ? 0 : kChunk, p.x, p.x_bf16, r0, kChunk, p.width,
                 !p.transform && !p.x_bf16);
+    }
     for (int v = 0; v < 2; ++v)
       if (vs[v] != nullptr && !aligned16(vs[v]) && tid < kChunk)
         vec[kChunk * v + tid] = vs[v][r0 + tid];
@@ -719,6 +807,36 @@ struct SlotLoop {
     return true;
   }
 
+  // kI8: the feature of accumulator row 16 v + g + 8 h (h = e / 2) of this
+  // thread's warpgroup: two neighbouring features a thread, so that one
+  // 16-bit read of a staged xq row gives both
+  __device__ static int x8_feature(int h) {
+    const int warp = threadIdx.x >> 5;
+    return (warp >> 2) * 64 + (warp & 3) * 16 + 2 * ((threadIdx.x & 31) >> 2) + h;
+  }
+
+  // kI8: A's fragments (xq^T: rows = features, k = the chunk's 32 source
+  // rows) from the staged xq rows, xf[2 kh + h]: features x8_feature(h),
+  // source rows 16 kh + 4 t ... + 3, one byte each; false where the
+  // warpgroup has no features
+  __device__ bool build_x8(uint32_t (&xf)[4], const unsigned char* st) const {
+    const int f0 = x8_feature(0);
+    if ((f0 & ~63) >= p.width) return false;  // the whole warpgroup
+    const unsigned char* xs = st + a_bytes;
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int kh = 0; kh < 2; ++kh) {
+      uint32_t h[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        h[q] = *reinterpret_cast<const uint16_t*>(xs + x8_off(16 * kh + 4 * t + q, f0));
+      const uint32_t x01 = __byte_perm(h[0], h[1], 0x5410), x23 = __byte_perm(h[2], h[3], 0x5410);
+      xf[2 * kh] = __byte_perm(x01, x23, 0x6420);
+      xf[2 * kh + 1] = __byte_perm(x01, x23, 0x7531);
+    }
+    return true;
+  }
+
   // start the warpgroup's two wgmma (16 deep each) of this chunk; wgmma_wait
   // ends them
   __device__ void mma_start(float (&acc)[kNT][4], const uint32_t (&af)[2][4],
@@ -730,17 +848,19 @@ struct SlotLoop {
     wgmma_commit();
   }
 
-  __device__ static void zero(float (&acc)[kNT][4]) {
+  template <class T>
+  __device__ static void zero(T (&acc)[kNT][4]) {
 #pragma unroll
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0;
   }
 
   // wgmma reads A's registers asynchronously: keep them live until here
-  __device__ static void keep(const uint32_t (&af)[2][4]) {
+  template <int K>
+  __device__ static void keep(const uint32_t (&af)[K][4]) {
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
+    for (int kk = 0; kk < K; ++kk)
 #pragma unroll
       for (int q = 0; q < 4; ++q) asm volatile("" ::"r"(af[kk][q]));
   }
@@ -750,9 +870,9 @@ struct SlotLoop {
   // i's first chunk; epi(i, b, acc) after its last chunk. With a tail,
   // mid(i, b, acc) runs after the last slot chunk and tail(j, bs, acc) for
   // chunk j of the tail (its rows at bs). acc is zeroed after mid and epi.
-  // Every thread calls each.
-  template <class First, class Mid, class Tail, class Epi>
-  __device__ void run(float (&acc)[kNT][4], uint64_t* full, First first, Mid mid, Tail tail,
+  // Every thread calls each. acc is float, or int with kI8.
+  template <class Acc, class First, class Mid, class Tail, class Epi>
+  __device__ void run(Acc (&acc)[kNT][4], uint64_t* full, First first, Mid mid, Tail tail,
                       Epi epi) {
     if (threadIdx.x == 0) {
       for (int i = 0; i < NST; ++i) mbar_init(&full[i], 1);
@@ -794,7 +914,17 @@ struct SlotLoop {
         __syncthreads();
         bs = bfb;
       }
-      if (!kTail || ci < C) {
+      if constexpr (kI8) {
+        uint32_t xf[1][4];
+        if (build_x8(xf[0], st)) {
+          wgmma_fence();
+          wgmma_s8_n128(acc, xf[0], desc_k32(st));
+          wgmma_commit();
+          wgmma_wait<0>();
+          pin(acc);
+          keep(xf);
+        }
+      } else if (!kTail || ci < C) {
         uint32_t af[2][4];
         if (build_a(af, st)) {
           mma_start(acc, af, bs);

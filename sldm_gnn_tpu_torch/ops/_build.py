@@ -122,14 +122,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gru_fwd_route.argtypes = [i, i, pi]  # D, H, -> route
     lib.gru_fwd_route.restype = i
     for name in ("gru_bwd_grid", "gru_bwd_sg_grid"):
-        getattr(lib, name).argtypes = [i, i, i, pi, pi]  # N, D, H, <-> dw_smem, -> blocks
+        getattr(lib, name).argtypes = [i, i, i, i, ctypes.POINTER(i64)]  # N, T, D, H, -> bytes
+        getattr(lib, name).restype = i
+    for name in ("gru_bwd_route", "gru_bwd_sg_route"):
+        getattr(lib, name).argtypes = [i, i, pi]  # D, H, -> route
         getattr(lib, name).restype = i
     lib.gru_bwd_launch.argtypes = [
         p, i64, i64, p,           # x, stride_n, stride_t, hs
         p, i64, i64, i,           # g, stride_n, stride_t, seq_cot
         i, i, i, i,               # N, T, D, H
         p, p, p, p,               # w_ih, b_ih, w_hh, b_hh
-        p, p, i, i, p, p,         # dx or NULL, partial, dw_smem, blocks, out, stream
+        p, p, i64, p, p,          # dx or NULL, workspace, its bytes, out, stream
     ]
     lib.gru_bwd_launch.restype = i
     lib.gru_bwd_sg_launch.argtypes = [
@@ -137,7 +140,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i64, i64, i,           # g, stride_n, stride_t, seq_cot
         i, i, i, i,               # N, T, D, H
         p, p,                     # w_ih, w_hh
-        p, p, i, i, p, p,         # dx or NULL, partial, dw_smem, blocks, out, stream
+        p, p, i64, p, p,          # dx or NULL, workspace, its bytes, out, stream
     ]
     lib.gru_bwd_sg_launch.restype = i
     lib.gru_scan_fwd_launch.argtypes = [

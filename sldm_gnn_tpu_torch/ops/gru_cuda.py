@@ -303,11 +303,10 @@ def gru_bwd_sg_plain(x: torch.Tensor, hs: torch.Tensor, gates: torch.Tensor,
 
 
 def _bwd_cuda(name, grid_fn, launch_fn, x, hs, g, seq_cot, with_dx, w_ih, w_hh,
-              extra_ptrs, dw_smem):
-    """Shared launch of the two backward kernels: validates, allocates the
-    per-block partials and the packed result, launches, and splits.
-    ``dw_smem``: where a block sums its partial dW_hh (True: shared memory,
-    False: its workspace slice, None: shared memory where it fits)."""
+              extra_ptrs):
+    """Shared launch of the two backward kernels: validates, asks the library
+    for the workspace its route needs at this shape, allocates it and the
+    packed result, launches, and splits."""
     if x.dtype != torch.float32 or x.dim() != 3:
         raise ValueError(f"x must be float32 [N, T, D], got {x.dtype} {tuple(x.shape)}")
     N, T, D = x.shape
@@ -334,21 +333,19 @@ def _bwd_cuda(name, grid_fn, launch_fn, x, hs, g, seq_cot, with_dx, w_ih, w_hh,
         from . import _build
 
         lib = _build.load()
-        blocks = ctypes.c_int(0)
-        place = ctypes.c_int(-1 if dw_smem is None else int(dw_smem))
+        nbytes = ctypes.c_int64(0)
         with torch.cuda.device(dev):
-            code = getattr(lib, grid_fn)(N, D, H, ctypes.byref(place), ctypes.byref(blocks))
-            _build.check(lib, code, f"{name} grid (N={N}, D={D}, H={H})")
-            partial = torch.empty((blocks.value, rows, 3 * H), device=dev,
-                                  dtype=torch.float32)
+            code = getattr(lib, grid_fn)(N, T, D, H, ctypes.byref(nbytes))
+            _build.check(lib, code, f"{name} grid (N={N}, T={T}, D={D}, H={H})")
+            ws = torch.empty(nbytes.value, device=dev, dtype=torch.uint8)
             stream = torch.cuda.current_stream(dev).cuda_stream
             w_ih_b = w_ih.to(dev, torch.bfloat16).contiguous()
             w_hh_b = w_hh.to(dev, torch.bfloat16).contiguous()
             code = getattr(lib, launch_fn)(
                 x.data_ptr(), x.stride(0), x.stride(1), hs.data_ptr(),
                 *extra_ptrs(w_ih_b, w_hh_b, g, g_sn, g_st, int(seq_cot), N, T, D, H),
-                dx.data_ptr() if with_dx else None, partial.data_ptr(), place.value,
-                blocks.value, out.data_ptr(), stream)
+                dx.data_ptr() if with_dx else None, ws.data_ptr(), nbytes.value,
+                out.data_ptr(), stream)
         _build.check(lib, code, f"{name} kernel (N={N}, T={T}, D={D}, H={H})")
     return dx, out[H + 1:H + 1 + D], out[H + 1 + D], out[:H], out[H]
 
@@ -356,15 +353,8 @@ def _bwd_cuda(name, grid_fn, launch_fn, x, hs, g, seq_cot, with_dx, w_ih, w_hh,
 def gru_bwd(x: torch.Tensor, hs: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
             w_hh: torch.Tensor, b_hh: torch.Tensor, g: torch.Tensor, *,
             seq_cot: bool = False, with_dx: bool = True):
-    """:func:`gru_bwd_plain`'s function: the ``csrc/gru_bwd.cu`` kernel for
+    """:func:`gru_bwd_plain`'s function: the ``csrc/gru_bwd.cu`` kernels for
     CUDA tensors, the plain version for CPU tensors."""
-    return _gru_bwd(x, hs, w_ih, b_ih, w_hh, b_hh, g, seq_cot, with_dx, None)
-
-
-def _gru_bwd(x, hs, w_ih, b_ih, w_hh, b_hh, g, seq_cot, with_dx, dw_smem):
-    """:func:`gru_bwd` with the partial dW_hh's placement forced
-    (``dw_smem``: see ``_bwd_cuda``); only the one-time timing of the two
-    placements sets it."""
     if x.device.type == "cpu":
         return gru_bwd_plain(x, hs, w_ih, b_ih, w_hh, b_hh, g, seq_cot=seq_cot,
                              with_dx=with_dx)
@@ -380,7 +370,7 @@ def _gru_bwd(x, hs, w_ih, b_ih, w_hh, b_hh, g, seq_cot, with_dx, dw_smem):
                 b_ih_f.data_ptr(), w_hh_b.data_ptr(), b_hh_f.data_ptr())
 
     res = _bwd_cuda("gru_bwd", "gru_bwd_grid", "gru_bwd_launch", x, hs, g, seq_cot,
-                    with_dx, w_ih, w_hh, ptrs, dw_smem)
+                    with_dx, w_ih, w_hh, ptrs)
     if x.shape[0] > 0 and x.shape[1] > 0:
         gru_bwd.launches += 1
     return res
@@ -393,12 +383,7 @@ def gru_bwd_sg(x: torch.Tensor, hs: torch.Tensor, gates: torch.Tensor,
                w_ih: torch.Tensor, w_hh: torch.Tensor, g: torch.Tensor, *,
                seq_cot: bool = False, with_dx: bool = True):
     """:func:`gru_bwd_sg_plain`'s function: the ``csrc/gru_bwd_sg.cu``
-    kernel for CUDA tensors, the plain version for CPU tensors."""
-    return _gru_bwd_sg(x, hs, gates, w_ih, w_hh, g, seq_cot, with_dx, None)
-
-
-def _gru_bwd_sg(x, hs, gates, w_ih, w_hh, g, seq_cot, with_dx, dw_smem):
-    """:func:`gru_bwd_sg` with the placement forced, as :func:`_gru_bwd`."""
+    kernels for CUDA tensors, the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return gru_bwd_sg_plain(x, hs, gates, w_ih, w_hh, g, seq_cot=seq_cot,
                                 with_dx=with_dx)
@@ -415,13 +400,30 @@ def _gru_bwd_sg(x, hs, gates, w_ih, w_hh, g, seq_cot, with_dx, dw_smem):
                 w_ih_b.data_ptr(), w_hh_b.data_ptr())
 
     res = _bwd_cuda("gru_bwd_sg", "gru_bwd_sg_grid", "gru_bwd_sg_launch", x, hs, g,
-                    seq_cot, with_dx, w_ih, w_hh, ptrs, dw_smem)
+                    seq_cot, with_dx, w_ih, w_hh, ptrs)
     if N > 0 and T > 0:
         gru_bwd_sg.launches += 1
     return res
 
 
 gru_bwd_sg.launches = 0
+
+
+def gru_bwd_route(d: int, h: int, *, stored: bool = False) -> int:
+    """Which kernels :func:`gru_bwd` (or with ``stored`` :func:`gru_bwd_sg`)
+    launch for input width ``d`` and hidden width ``h`` (a key of
+    ``FWD_ROUTES``), as the library's ``gru_bwd_route`` /
+    ``gru_bwd_sg_route`` report it for the current card (``bwd_route`` in
+    ``csrc/gru_bwd.cuh``). Builds the library and needs the card."""
+    import ctypes
+
+    from . import _build
+
+    lib = _build.load()
+    out = ctypes.c_int(0)
+    fn = "gru_bwd_sg_route" if stored else "gru_bwd_route"
+    _build.check(lib, getattr(lib, fn)(d, h, ctypes.byref(out)), fn)
+    return out.value
 
 
 def _fn_forward(ctx, x, w_ih, b_ih, w_hh, b_hh, store_gates):

@@ -60,12 +60,50 @@ def test_quantize_rows_bit_equal_to_jax(rng):
                                   np.asarray(jq.dequantize_rows(jqv, js)))
 
 
-def test_int8_plain_matches_pallas(rng):
-    n, tile, d = 3000, 64, 16
+# (tile, D): the JAX test's, then tiles 32 and 128 at D 4 and 40 (rows the
+# CUDA kernel's TMA cannot take) and 128; "exact" is one row that takes
+# each of 1152 sources (9 tiles of 128) EXACT_COUNTS times with xq = 127:
+# 124 times (a multiple of 4) but 123 at source 1087 and 126 at the last,
+# so the sum up to 1087 is odd and past 2^24 and the rest adds 2 mod 4. The
+# exact sum, 18141823, rounds once to a multiple of 4; a sum accumulated in
+# f32 rounds at 1087 and ends 2 off (checked in the test).
+INT8_CASES = [(64, 16), (32, 4), (32, 40), (32, 128), (128, 4), (128, 40), (128, 128), "exact"]
+EXACT_COUNTS = np.full(1152, 124, np.int64)
+EXACT_COUNTS[1087], EXACT_COUNTS[-1] = 123, 126
+
+
+def _f32_sums(contrib, g):
+    """An f32 accumulator adding the exact sums of g consecutive terms in order."""
+    acc = np.float32(0)
+    for i in range(0, len(contrib), g):
+        acc = np.float32(acc + np.float32(int(contrib[i:i + g].sum())))
+    return acc
+
+
+def _int8_case(rng, case):
+    if case == "exact":
+        n = len(EXACT_COUNTS)
+        src = np.repeat(np.arange(n, dtype=np.int64), EXACT_COUNTS)
+        dst = np.full(len(src), n // 2, np.int64)
+        return src, dst, n, 128, 128
+    tile, d = case
     src, dst = _banded_graph(rng)
+    return src, dst, 3000, tile, d
+
+
+INT8_IDS = [c if isinstance(c, str) else f"tile{c[0]}-D{c[1]}" for c in INT8_CASES]
+
+
+@pytest.mark.parametrize("case", INT8_CASES, ids=INT8_IDS)
+def test_int8_plain_matches_pallas(rng, case):
+    src, dst, n, tile, d = _int8_case(rng, case)
     fwd, _, n_pad = tsb.prepare_banded_mean_aggregate(src, dst, n, tile=tile, k=4)
     jf, _, _ = jsb.prepare_banded_mean_aggregate(src, dst, n, tile=tile, k=4)
-    x = rng.standard_normal((n_pad, d)).astype(np.float32)
+    if case == "exact":
+        assert fwd.s_span == 9
+        x = np.ones((n_pad, d), np.float32)  # quantized to 127 everywhere
+    else:
+        x = rng.standard_normal((n_pad, d)).astype(np.float32)
     jxq, js = jq.quantize_tensor_xla(jnp.asarray(x))
     xq, s = tq.quantize_tensor_xla(torch.from_numpy(x))
     got = tsb.spmm_banded_int8(xq, s, fwd)
@@ -76,8 +114,16 @@ def test_int8_plain_matches_pallas(rng):
     # the exact integer sums, as test_spmm_banded.py:178-186 writes them
     want_int = np.zeros((n_pad, d), np.int64)
     np.add.at(want_int, dst, xq.numpy().astype(np.int64)[src])
+    if case == "exact":
+        total = int(EXACT_COUNTS.sum()) * 127
+        assert want_int[n // 2, 0] == total > 2 ** 24
+        # the case tells an exact sum from one accumulated in f32
+        for g in (1, 16, 32, 64):
+            assert _f32_sums(EXACT_COUNTS * 127, g) != np.float32(total)
     exact = (want_int.astype(np.float32) * s.numpy()[0]) * fwd.row_scale.numpy()
     np.testing.assert_array_equal(got.numpy(), exact)
+    if case == "exact":
+        return
     # the convenience wrapper
     got_w = tsb.spmm_banded_infer_int8(torch.from_numpy(x), fwd)
     want_w = np.asarray(jsb.spmm_banded_infer_int8(jnp.asarray(x), jax.tree.map(jnp.asarray, jf),

@@ -205,22 +205,28 @@ GRAD_RTOL = 1e-2
 N_B, T_B, D_B, H_B = 40, 12, 6, 32
 
 
-def _bwd_case(rng, seed):
-    p = init_gru_params(jax.random.PRNGKey(seed), D_B, H_B, 1)
-    x = rng.standard_normal((N_B, T_B, D_B)).astype(np.float32)
+def _bwd_case(rng, seed, n=N_B, h=H_B):
+    p = init_gru_params(jax.random.PRNGKey(seed), D_B, h, 1)
+    x = rng.standard_normal((n, T_B, D_B)).astype(np.float32)
     return p, x
 
 
+# row counts around the kernels' row tiles (one row; 63, 65 about 64) and
+# hidden widths that are not multiples of 8 (20) or of 2 (33)
+BWD_SHAPES = [(N_B, H_B), (1, H_B), (63, H_B), (65, H_B), (N_B, 20), (N_B, 33)]
+
+
+@pytest.mark.parametrize("n,h", BWD_SHAPES, ids=[f"N{n}-H{h}" for n, h in BWD_SHAPES])
 @pytest.mark.parametrize("with_dx", [False, True])
 @pytest.mark.parametrize("form", ["last", "seq"])
 @pytest.mark.parametrize("store_gates", [False, True])
-def test_gru_backward_plain_matches_pallas(rng, form, store_gates, with_dx):
+def test_gru_backward_plain_matches_pallas(rng, form, store_gates, with_dx, n, h):
     from sldm_gnn_tpu.ops.gru_pallas import gru_last_sg_pallas, gru_seq_sg_pallas
 
-    p, x = _bwd_case(rng, 7)
+    p, x = _bwd_case(rng, 7, n, h)
     jfn = {("last", False): gru_last_pallas, ("last", True): gru_last_sg_pallas,
            ("seq", False): gru_seq_pallas, ("seq", True): gru_seq_sg_pallas}[form, store_gates]
-    cot = rng.standard_normal((N_B, T_B, H_B) if form == "seq" else (N_B, H_B)
+    cot = rng.standard_normal((n, T_B, h) if form == "seq" else (n, h)
                               ).astype(np.float32)
     args = (jnp.asarray(x), p.w_ih0, p.b_ih0, p.w_hh0, p.b_hh0)
     out_j, vjp = jax.vjp(lambda *a: jfn(*a, 16, True, with_dx), *args)
