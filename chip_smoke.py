@@ -79,7 +79,14 @@ launch count set to 0 just before a path and read just after it:
     ``gru_fwd_sg`` at N of 1 to 19 558, H of 16, 40, 96, 128 and each D's
     widest, D of 6, 96 and 128, against their plain versions, with the
     kernel each width routes to (tensor cores or FMA) printed; then the
-    backwards' sweep (``check_gru_bwd_sweep``) at D 6, 40, 128 and 160.
+    backwards' sweep (``check_gru_bwd_sweep``) at D 6, 40, 128 and 160,
+    and the v1 backward's (``check_gru_scan_bwd_sweep``: N of 1 to 19 558
+    around its row tiles, T of 1, 2 and 100, H of 8 to its widest, strided
+    xproj and g, and ``gru_forward_v1`` at one and two layers);
+  * after the int8 banded sweep, the gather kernel's (``check_gather_sweep``:
+    tiles 32, 64 and 128, R of 1 to 32, D of 1 to 128, bf16 and f32, with
+    and without a row scale, both directions, padding slots and an
+    infinite x row), bit-equal to its plain version.
 
 ``python3 chip_smoke.py --gru-bwd-ms`` only times both GRU backwards at a
 stack's upper layer (the flagship's rows, D=H=128), so a copy of this file
@@ -130,6 +137,7 @@ MAP_FEATS = 9
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_TF32_FLOP_S = 495e12
 PEAK_INT8_OP_S = 1979e12
 
 # tolerances, kernel vs its plain version on the same card:
@@ -2165,6 +2173,42 @@ def check_reorder(mods: dict, graph) -> None:
 # ---------------- the v1 GRU, GruSage's other paths, the megakernel, cmap
 
 
+def v1_leaves(gen, h: int, layers: int, dev) -> list[torch.Tensor]:
+    """GRUParams' leaves of a v1 stack over FEATURES inputs: the first
+    layer's w_ih, w_hh, b_ih, b_hh, then the upper layers' stacked (empty at
+    one layer)."""
+    w0 = gru_weights(gen, FEATURES, h, dev)  # (w_ih, b_ih, w_hh, b_hh)
+    rest = [gru_weights(gen, h, h, dev) for _ in range(layers - 1)]
+
+    def stacked(i, shape):
+        return torch.stack([r[i] for r in rest]) if rest else \
+            torch.zeros((0,) + shape, device=dev)
+
+    return [w0[0], w0[2], w0[1], w0[3], stacked(0, (h, 3 * h)), stacked(2, (h, 3 * h)),
+            stacked(1, (3 * h,)), stacked(3, (3 * h,))]
+
+
+def v1_grads(forward, leaves, x, coef):
+    """(outputs, gradients of sum(out * coef) + sum(h_last^2) by x and every
+    non-empty leaf) of a GRU stack `forward`."""
+    from sldm_gnn_tpu_torch.ops.gru import GRUParams
+
+    ps = [t.detach().clone().requires_grad_(t.numel() > 0) for t in leaves]
+    xg = x.detach().clone().requires_grad_()
+    out, h_last = forward(GRUParams(*ps), xg)
+    loss = (out * coef).sum() + (h_last ** 2).sum()
+    return out.detach(), torch.autograd.grad(loss, [xg, *[p for p in ps if p.requires_grad]])
+
+
+def v1_agreement(out_k, g_k, out_p, g_p, tol: float) -> tuple[bool, float]:
+    """(outputs within SCAN_TOL of the f32 scan's, the largest excess of a
+    gradient over tol * |g| as a share of its max|g| + 1e-6)."""
+    ok = bool(((out_k - out_p).abs() <= SCAN_TOL + SCAN_TOL * out_p.abs()).all())
+    excess = max(((a - b).abs() - tol * b.abs()).max().item() / (b.abs().max().item() + 1e-6)
+                 for a, b in zip(g_k, g_p))
+    return ok, excess
+
+
 def check_gru_scan(mods: dict, gen, dev, smi: str) -> list[dict]:
     """The v1 GRU scan (gru_forward_v1: the input projection by torch.matmul,
     then gru_scan_fwd / gru_scan_bwd through GruScanFn) at the flagship
@@ -2175,7 +2219,7 @@ def check_gru_scan(mods: dict, gen, dev, smi: str) -> list[dict]:
     gradients of x and every parameter at SCAN_GRAD_TOL[layers] of max|g| +
     1e-6; a second run bit-equal. Then each kernel against its plain version
     and times of kernel, plain version and cuDNN's f32 GRU (TF32 off)."""
-    from sldm_gnn_tpu_torch.ops.gru import GRUParams, gru_forward
+    from sldm_gnn_tpu_torch.ops.gru import gru_forward
 
     gru_cuda = mods["gru_cuda"]
     if torch.backends.cuda.matmul.allow_tf32:
@@ -2187,26 +2231,9 @@ def check_gru_scan(mods: dict, gen, dev, smi: str) -> list[dict]:
     errs = {"gru_scan_fwd": 0.0, "gru_scan_bwd": 0.0}
     counts = None
     for layers in (1, 2):
-        w0 = gru_weights(gen, FEATURES, h, dev)  # (w_ih, b_ih, w_hh, b_hh)
-        rest = [gru_weights(gen, h, h, dev) for _ in range(layers - 1)]
-
-        def stacked(i, shape):
-            return torch.stack([r[i] for r in rest]) if rest else \
-                torch.zeros((0,) + shape, device=dev)
-
-        leaves = [w0[0], w0[2], w0[1], w0[3], stacked(0, (h, 3 * h)), stacked(2, (h, 3 * h)),
-                  stacked(1, (3 * h,)), stacked(3, (3 * h,))]
-
-        def run(forward):
-            ps = [t.detach().clone().requires_grad_(t.numel() > 0) for t in leaves]
-            xg = x.detach().clone().requires_grad_()
-            out, h_last = forward(GRUParams(*ps), xg)
-            loss = (out * coef).sum() + (h_last ** 2).sum()
-            live = [p for p in ps if p.requires_grad]
-            return out.detach(), torch.autograd.grad(loss, [xg, *live])
-
+        leaves = v1_leaves(gen, h, layers, dev)
         set_counts_to_zero(mods)
-        out_k, g_k = run(gru_cuda.gru_forward_v1)
+        out_k, g_k = v1_grads(gru_cuda.gru_forward_v1, leaves, x, coef)
         torch.cuda.synchronize()
         c = read_counts(mods)
         want = {"gru_scan_fwd": layers, "gru_scan_bwd": layers}
@@ -2214,18 +2241,13 @@ def check_gru_scan(mods: dict, gen, dev, smi: str) -> list[dict]:
             raise AssertionError(f"v1 GRU {layers} layer(s): launches {c}, want {want}")
         if layers == 1:
             counts = c
-        out_a, g_a = run(gru_cuda.gru_forward_v1)
-        out_p, g_p = run(gru_forward)
+        out_a, g_a = v1_grads(gru_cuda.gru_forward_v1, leaves, x, coef)
+        out_p, g_p = v1_grads(gru_forward, leaves, x, coef)
         torch.cuda.synchronize()
         stable = torch.equal(out_k, out_a) and all(torch.equal(a, b) for a, b in zip(g_k, g_a))
         e_out = (out_k - out_p).abs().max().item()
-        ok_out = bool(((out_k - out_p).abs() <= SCAN_TOL + SCAN_TOL * out_p.abs()).all())
         tol = SCAN_GRAD_TOL[layers]
-        worst = 0.0
-        for a, b in zip(g_k, g_p):
-            scale = b.abs().max().item() + 1e-6
-            excess = ((a - b).abs() - tol * b.abs()).max().item() / scale
-            worst = max(worst, excess)
+        ok_out, worst = v1_agreement(out_k, g_k, out_p, g_p, tol)
         log(f"v1 GRU N={n} T={FRAMES} D={FEATURES} H={h}, {layers} layer(s): outputs vs the f32 "
             f"scan max_abs {e_out:.3e} (rtol/atol {SCAN_TOL}: {ok_out}); {len(g_k)} gradients "
             f"within rtol {tol} + {tol} * (max|g| + 1e-6): largest excess {worst:.3e} of that "
@@ -2281,6 +2303,19 @@ def check_gru_scan(mods: dict, gen, dev, smi: str) -> list[dict]:
     log(f"v1 GRU widest H on this card (takes H, takes H + 1): {probe} at H = {widest}")
     if any(p != (True, False) for p in probe.values()):
         raise AssertionError("the v1 scan's widest H differs from SCAN_WIDEST_H")
+    # the backward's row tile by width, as the library reports it, against
+    # the kernel's header: 32 rows at H <= SCAN_BWD_H_32_ROWS, 16 up to the
+    # widest, none past it
+    tiles = {hh: gru_cuda.gru_scan_bwd_rows(hh) for hh in range(1, widest["backward"] + 2)}
+    want_tiles = {hh: 32 if hh <= SCAN_BWD_H_32_ROWS else 16 if hh <= widest["backward"] else 0
+                  for hh in tiles}
+    log(f"v1 backward row tile by H (gru_scan_bwd_rows): 32 rows at H <= "
+        f"{max((hh for hh, m in tiles.items() if m == 32), default=0)}, 16 at H <= "
+        f"{max((hh for hh, m in tiles.items() if m == 16), default=0)}, "
+        f"{tiles[widest['backward'] + 1]} at {widest['backward'] + 1}")
+    if tiles != want_tiles:
+        raise AssertionError(f"the v1 backward's row tiles differ from the header's: "
+                             f"{ {hh: m for hh, m in tiles.items() if m != want_tiles[hh]} }")
 
     fwd_ms, fwd_host = timed(lambda: gru_cuda.gru_scan_fwd(xproj, w_hh, b_hh), iters=10)
     bwd_ms, bwd_host = timed(lambda: gru_cuda.gru_scan_bwd(xproj, hs, w_hh, b_hh, g), iters=3)
@@ -2312,8 +2347,10 @@ def check_gru_scan(mods: dict, gen, dev, smi: str) -> list[dict]:
     rows, H3 = n * FRAMES, 3 * h
     io = rows * H3 * 4 + rows * h * 4  # xproj and hs (or g)
     fwd_bound = bound(io + (H3 * h + H3) * 4, 2.0 * rows * H3 * h, PEAK_F32_FLOP_S)
-    bwd_bound = bound(2 * io + rows * h * 4 + (H3 * h + H3) * 8, 6.0 * rows * H3 * h,
-                      PEAK_F32_FLOP_S)
+    # the backward reads xproj, hs and g and writes dxproj (2 io); its three
+    # products run as 3xTF32: three TF32 products each
+    bwd_bound = bound(2 * io + (H3 * h + H3) * 8, 3 * 6.0 * rows * H3 * h,
+                      PEAK_TF32_FLOP_S)
     for name, ms, host, plain_ms, lib_ms, bnd in (
             ("gru_scan_fwd", fwd_ms, fwd_host, fwd_plain, lib_fwd, fwd_bound),
             ("gru_scan_bwd", bwd_ms, bwd_host, bwd_plain, lib_bwd, bwd_bound)):
@@ -2336,6 +2373,84 @@ def check_gru_scan(mods: dict, gen, dev, smi: str) -> list[dict]:
              bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=lib_bwd,
              library="cuDNN nn.GRU f32 backward, input projection included", **common),
     ]
+
+
+# the v1 backward's sweep: N around its row tiles (16, 32, 64 rows), T of
+# one, two and the flagship's frames, H not a multiple of 4 or 16, past 96
+# (where the row tile narrows and dW_hh takes two passes) and the widest;
+# the flagship's rows at T 2 (and 100 at the widest); the autograd path at
+# one and two layers
+SCAN_SWEEP_N = (1, 23, 24, 25, 63, 64, 65)
+SCAN_SWEEP_T = (1, 2, FRAMES)
+SCAN_SWEEP_H = (8, 20, 33, 64, 96, 100)
+SCAN_SWEEP_FN = ((65, 10, 33), (200, 10, 100))  # (N, T, H) through GruScanFn
+SCAN_BWD_H_32_ROWS = 112  # the widest H of the backward's 32-row tile (its header)
+
+
+def check_gru_scan_bwd_sweep(gru_cuda, dev) -> int:
+    """gru_scan_bwd against its plain version: max|err| / (max|plain| +
+    1e-6) of dxproj, dW_hh and db_hh within SCAN_GRAD_TOL[1], every output
+    finite, two launches bit-equal; N in SCAN_SWEEP_N and the flagship's
+    rows, T in SCAN_SWEEP_T, H in SCAN_SWEEP_H and SCAN_WIDEST_H's; every
+    other case with xproj and g as strided views of [N, T, .] (as
+    gru_forward_v1 passes them). hs from gru_scan_fwd. Then gru_forward_v1
+    (GruScanFn) at SCAN_SWEEP_FN, one and two layers, against the f32 scan
+    under autograd at SCAN_TOL / SCAN_GRAD_TOL[layers], two runs bit-equal.
+    Returns the number of cases."""
+    from sldm_gnn_tpu_torch.ops.gru import gru_forward
+
+    gen = torch.Generator().manual_seed(SEED)
+    widest = gru_cuda.SCAN_WIDEST_H["backward"]
+    flag = flagship_rows(np.random.default_rng(SEED))
+    cases = [(n, t, h) for h in SCAN_SWEEP_H + (widest,) for n in SCAN_SWEEP_N
+             for t in SCAN_SWEEP_T]
+    cases += [(flag, 2, h) for h in SCAN_SWEEP_H + (widest,)] + [(flag, FRAMES, widest)]
+    worst = 0.0
+    t0 = time.perf_counter()
+    for i, (n, t, h) in enumerate(cases):
+        w = gru_weights(gen, h, h, dev)
+        strided = i % 2 == 1
+        xp = torch.randn((n, t, 3 * h) if strided else (t, n, 3 * h), generator=gen) * 0.8
+        g = torch.randn((n, t, h) if strided else (t, n, h), generator=gen)
+        xp, g = xp.to(dev), g.to(dev)
+        if strided:
+            xp, g = xp.transpose(0, 1), g.transpose(0, 1)
+        hs = gru_cuda.gru_scan_fwd(xp, w[2], w[3])
+        got, again = (gru_cuda.gru_scan_bwd(xp, hs, w[2], w[3], g) for _ in range(2))
+        want = gru_cuda.gru_scan_bwd_plain(xp, hs, w[2], w[3], g)
+        torch.cuda.synchronize()
+        rel = [((a - b).abs().max() / (b.abs().max() + 1e-6)).item() for a, b in zip(got, want)]
+        stable = all(torch.equal(a, b) for a, b in zip(got, again))
+        worst = max(worst, *rel)
+        if max(rel) > SCAN_GRAD_TOL[1] or not stable or not all(
+                torch.isfinite(a).all() for a in got):
+            raise AssertionError(
+                f"v1 backward sweep: N={n} T={t} H={h} (strided {strided}): max|err| / "
+                f"(max|plain| + 1e-6) {['%.2e' % r for r in rel]} (tol {SCAN_GRAD_TOL[1]}), "
+                f"two launches bit-equal {stable}")
+        del xp, g, hs, got, again, want
+    for (n, t, h), layers in itertools.product(SCAN_SWEEP_FN, (1, 2)):
+        leaves = v1_leaves(gen, h, layers, dev)
+        x = torch.randn((n, t, FEATURES), generator=gen).to(dev)
+        coef = torch.randn((n, t, h), generator=gen).to(dev)
+        out_k, g_k = v1_grads(gru_cuda.gru_forward_v1, leaves, x, coef)
+        out_a, g_a = v1_grads(gru_cuda.gru_forward_v1, leaves, x, coef)
+        out_p, g_p = v1_grads(gru_forward, leaves, x, coef)
+        torch.cuda.synchronize()
+        stable = torch.equal(out_k, out_a) and all(torch.equal(a, b) for a, b in zip(g_k, g_a))
+        ok, excess = v1_agreement(out_k, g_k, out_p, g_p, SCAN_GRAD_TOL[layers])
+        if not ok or excess > SCAN_GRAD_TOL[layers] or not stable:
+            raise AssertionError(f"v1 GRU N={n} T={t} H={h}, {layers} layer(s): outputs within "
+                                 f"SCAN_TOL {ok}, gradient excess {excess:.3e} (tol "
+                                 f"{SCAN_GRAD_TOL[layers]}), two runs bit-equal {stable}")
+    log(f"v1 backward sweep: {len(cases)} cases (N {SCAN_SWEEP_N} and {flag}, T "
+        f"{SCAN_SWEEP_T}, "
+        f"H {SCAN_SWEEP_H} and the widest {widest}; half with strided xproj and g) within "
+        f"{SCAN_GRAD_TOL[1]} of max|plain| (worst {worst:.2e}), two launches bit-equal; "
+        f"gru_forward_v1 at (N, T, H) {SCAN_SWEEP_FN}, 1 and 2 layers, against the f32 scan, "
+        f"two runs bit-equal; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return len(cases)
 
 
 def check_spmm_mk(mods: dict, graph, gen, dev, smi: str) -> list[dict]:
@@ -2791,6 +2906,81 @@ def check_int8_sweep(mods: dict, dev) -> int:
     return n_cases
 
 
+# the gather kernel's sweep: synthetic layouts of GATHER_SWEEP_BLOCKS
+# destination blocks (more than two a SM) in groups of 2 over x windows of 4
+# tiles, slot counts below, at and past the kernel's 4-slot unroll and the
+# 32-slot line (R 31 and 32 at tile 128 split a block into two runs of
+# rows), widths that are not a multiple of its 16-byte loads (8 bf16 or 4
+# f32 columns) and the widest
+GATHER_SWEEP_R = (1, 2, 7, 8, 9, 16, 24, 31, 32)
+GATHER_SWEEP_D = (1, 4, 40, 96, 127, 128)
+GATHER_SWEEP_BLOCKS = 300
+GATHER_SWEEP_MODES = ("forward, row scale", "forward, no scale",
+                      "reverse (column scale folded into x)")
+
+
+def check_gather_sweep(mods: dict, dev) -> int:
+    """spmm_gather against its plain version, bit for bit, and two launches
+    bit-equal: tiles 32, 64 and 128, R in GATHER_SWEEP_R, D in
+    GATHER_SWEEP_D, bf16 and f32 x, with a row scale, without, and the
+    reverse direction (a column scale folded into x, as the dispatch does).
+    A quarter of the slots are padding (code 0, multiplicity 0), and x's
+    first window base row, which the padding slots point at, is infinite:
+    the non-finite outputs must fall where the plain version's do. Returns
+    the number of cases."""
+    tsg = mods["spmm_gather"]
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    nb, k, wsz = GATHER_SWEEP_BLOCKS, 2, 4
+    n_cases = 0
+    t0 = time.perf_counter()
+    for tile, r in itertools.product(SWEEP_TILES, GATHER_SWEEP_R):
+        n = nb * tile
+        woff = rng.integers(0, nb - wsz + 1, nb // k).astype(np.int32)
+        codes = rng.integers(0, wsz * tile, (nb, r * tile + tile, 1)).astype(np.int32)
+        mult = rng.integers(1, 4, (nb, r * tile, 1)).astype(np.float32)
+        pad = rng.random((nb, r * tile, 1)) < 0.25
+        mult[pad] = 0.0
+        codes[:, : r * tile][pad] = 0
+        scale = (1.0 / rng.integers(1, 9, (n, 1))).astype(np.float32)
+        base = tsg.GatherBlocks(
+            codes=torch.from_numpy(codes), mult=torch.from_numpy(mult),
+            bo=torch.zeros(nb, dtype=torch.int32), woff=torch.from_numpy(woff),
+            off=torch.zeros(nb, dtype=torch.int32), tile=tile, wsz=wsz, k=k).to(dev)
+        sc = torch.from_numpy(scale).to(dev)
+        for d, dt, mode in itertools.product(GATHER_SWEEP_D, (torch.bfloat16, torch.float32),
+                                             GATHER_SWEEP_MODES):
+            x = torch.randn((n, d), generator=gen, device=dev)
+            x[int(woff[0]) * tile] = float("inf")
+            lay = base
+            if mode.startswith("forward, row"):
+                lay = dataclasses.replace(base, row_scale=sc)
+            elif mode.startswith("reverse"):
+                x = x * sc
+            x = x.to(dt)
+            got, again = (tsg.spmm_gather(x, lay) for _ in range(2))
+            want = tsg.spmm_gather_plain(x, lay)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(want)
+            same = (torch.equal(fin, torch.isfinite(got)) and torch.equal(got[fin], want[fin])
+                    and torch.equal(got.isnan(), want.isnan()))
+            stable = torch.equal(got.isnan(), again.isnan()) and torch.equal(
+                got.nan_to_num(), again.nan_to_num())
+            if not (same and stable and not bool(fin.all())):
+                err = (got.float() - want.float())[fin].abs().max().item()
+                raise AssertionError(
+                    f"gather sweep: tile {tile} R {r} D {d} {dt} {mode}: max|err| {err:.3e} "
+                    f"where finite, non-finite positions equal "
+                    f"{torch.equal(fin, torch.isfinite(got))}, two launches bit-equal {stable} "
+                    f"(must be bit-equal, with some non-finite outputs)")
+            n_cases += 1
+    log(f"gather sweep: {n_cases} cases (tiles {SWEEP_TILES}, R {GATHER_SWEEP_R}, D "
+        f"{GATHER_SWEEP_D}, bf16 and f32, {len(GATHER_SWEEP_MODES)} scale modes, padding "
+        f"slots, an infinite x row) bit-equal to the plain version, two launches bit-equal; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return n_cases
+
+
 def check_dense_sweep(mods: dict, dev) -> int:
     """spmm_dense against its plain version on ragged shapes: tiles 32, 64
     and 128 of a small local graph, D in DENSE_SWEEP_WIDTHS, int8, f32 and
@@ -2905,6 +3095,7 @@ def main() -> int:
     check_gru_widths(gru_cuda, gen, dev)
     check_gru_sweep(gru_cuda, dev)
     check_gru_bwd_sweep(gru_cuda, dev)
+    check_gru_scan_bwd_sweep(gru_cuda, dev)
     torch.cuda.empty_cache()
 
     mods = {"gru_cuda": gru_cuda, "knn_ops": knn_ops, "spmm_banded": spmm_banded,
@@ -2933,6 +3124,7 @@ def main() -> int:
     check_ragged_sweep(mods, dev)
     check_dense_sweep(mods, dev)
     check_int8_sweep(mods, dev)
+    check_gather_sweep(mods, dev)
     resid, pure, n_pad, graph = banded_layouts(mods, dev)
     banded_entries = check_banded_kernels(mods, resid, pure, graph, gen, dev)
     torch.cuda.empty_cache()

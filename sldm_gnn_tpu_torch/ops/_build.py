@@ -147,13 +147,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i64, i64, p, p,        # xproj, stride_t, stride_b, w_hh, b_hh
         i, i, i, p, p,            # T, B, H, hs, stream
     ]
+    lib.gru_scan_bwd_rows.argtypes = [i, pi]  # H, -> rows
     lib.gru_scan_bwd_grid.argtypes = [i, i, pi]  # B, H, -> blocks
     lib.gru_scan_bwd_launch.argtypes = [
         p, i64, i64, p, p, p,     # xproj, stride_t, stride_b, hs, w_hh, b_hh
         p, i64, i64, i, i, i,     # g, stride_t, stride_b, T, B, H
         p, p, i, p, p,            # dxproj, partial, blocks, out, stream
     ]
-    for name in ("gru_scan_fwd_launch", "gru_scan_bwd_grid", "gru_scan_bwd_launch"):
+    for name in ("gru_scan_fwd_launch", "gru_scan_bwd_rows", "gru_scan_bwd_grid",
+                 "gru_scan_bwd_launch"):
         getattr(lib, name).restype = i
     f = ctypes.c_float
     lib.spmm_banded_launch.argtypes = [

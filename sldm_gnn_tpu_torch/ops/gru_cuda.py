@@ -504,10 +504,25 @@ def gru_last_forward(params: GRUParams, x: torch.Tensor, *,
 # ------------------------------------------------------------ the v1 scan (f32)
 
 # The widest H each v1 kernel takes on an H100: the forward's 4H threads
-# and their registers must fit one SM (128), the backward's f32 W_hh and
-# its rows one block's 227 KB of shared memory (123); chip_smoke.py probes
-# both.
-SCAN_WIDEST_H = {"forward": 128, "backward": 123}
+# and their registers must fit one SM (128); the backward's f32 W_hh, each
+# gate padded to H rounded up to 16, and its narrowest row tile (16 rows)
+# one block's 227 KB of shared memory (128); chip_smoke.py probes both.
+SCAN_WIDEST_H = {"forward": 128, "backward": 128}
+
+
+def gru_scan_bwd_rows(h: int) -> int:
+    """The row tile :func:`gru_scan_bwd`'s kernel takes at hidden width
+    ``h``, 0 where ``h`` is wider than it takes, as the library's
+    ``gru_scan_bwd_rows`` reports it (``bwd_rows`` in ``csrc/gru_scan.cu``,
+    by shared memory). Builds the library and needs the card."""
+    import ctypes
+
+    from . import _build
+
+    lib = _build.load()
+    out = ctypes.c_int(0)
+    _build.check(lib, lib.gru_scan_bwd_rows(h, ctypes.byref(out)), "gru_scan_bwd_rows")
+    return out.value
 
 
 def _check_scan(xproj, w_hh, b_hh):
@@ -635,9 +650,10 @@ gru_scan_fwd.launches = 0
 def gru_scan_bwd(xproj: torch.Tensor, hs: torch.Tensor, w_hh: torch.Tensor,
                  b_hh: torch.Tensor, g: torch.Tensor):
     """:func:`gru_scan_bwd_plain`'s function: the ``csrc/gru_scan.cu``
-    backward kernel (a persistent grid with per-block partial dW_hh, summed
-    in block order by a second kernel) for CUDA tensors, the plain version
-    for CPU tensors."""
+    backward kernel (a persistent grid on the tensor cores in 3xTF32, each
+    block's dW_hh | db_hh in registers and written once a tile of rows,
+    the blocks' partials summed in block order by a second kernel) for
+    CUDA tensors, the plain version for CPU tensors."""
     if xproj.device.type == "cpu":
         return gru_scan_bwd_plain(xproj, hs, w_hh, b_hh, g)
     _check_scan(xproj, w_hh, b_hh)

@@ -76,10 +76,21 @@ def test_grads_match_pallas(rng, layers, tol):
                                    atol=atol, err_msg=NAMES[i])
 
 
-def test_bwd_plain_matches_pallas_bwd_kernel(rng):
+# (T, N, H): the first case, then the card sweep's ragged widths (H not a
+# multiple of 4 or of 16, H past 96 where dW_hh takes two passes), N not a
+# multiple of either row tile (16, 32) and one frame; then one row, the
+# flagship's H 96, the widest H of each row tile (112 of 32 rows, 128 of
+# 16) and the first of the 16-row tile (113), and N at and around a tile
+BWD_SHAPES = [(7, 9, 8), (5, 65, 20), (1, 23, 33), (3, 25, 100), (1, 65, 100),
+              (2, 1, 8), (1, 1, 128), (2, 24, 64), (3, 32, 96), (2, 33, 112), (2, 17, 113),
+              (2, 16, 128), (4, 31, 48), (3, 63, 16), (2, 40, 97), (5, 8, 24), (2, 48, 72),
+              (2, 64, 1)]
+
+
+@pytest.mark.parametrize("T,B,H", BWD_SHAPES, ids=[f"T{t}-N{b}-H{h}" for t, b, h in BWD_SHAPES])
+def test_bwd_plain_matches_pallas_bwd_kernel(rng, T, B, H):
     """gru_scan_bwd_plain against the JAX BPTT kernel itself (_run_bwd,
     interpret) on the JAX forward's hs: dxproj, dW_hh and db_hh."""
-    T, B, H = 7, 9, 8
     p = init_gru_params(jax.random.PRNGKey(5), 4, H, 1)
     xproj = (rng.standard_normal((T, B, 3 * H)) * 0.8).astype(np.float32)
     g = rng.standard_normal((T, B, H)).astype(np.float32)
@@ -121,15 +132,30 @@ def test_scan_refuses_bad_shapes():
         gru_cuda.gru_scan_fwd(torch.zeros(3, 2, 24, device="meta"), w, b)
 
 
+def _rup(a, b):
+    return -(-a // b) * b
+
+
+def _bwd_smem(h, rows):
+    """csrc/gru_scan.cu's bwd_smem(HG, rows): W_hh with each gate padded
+    to HG = H rounded up to 16, in rows of LD = 3 HG rounded up to 32; the
+    dhp tile [rows, LD], the hprev tile [rows, LH = HG rounded up to 32],
+    b_hh [3 HG]; f32."""
+    hg = _rup(h, 16)
+    ld, lh = _rup(3 * hg, 32), _rup(hg, 32)
+    return 4 * (hg * ld + rows * (ld + lh) + 3 * hg)
+
+
 def test_scan_widest_h_within_the_shared_memory_formula():
     """SCAN_WIDEST_H against the shared memory of csrc/gru_scan.cu
-    (fwd_smem_bytes / bwd_smem_bytes) and the H100's 232 448-byte opt-in:
-    the backward is the widest H that fits; the forward, capped lower by
+    (fwd_smem_bytes / bwd_smem) and the H100's 232 448-byte opt-in:
+    the backward is the widest H whose narrowest row tile (16 rows) fits,
+    and not below the 123 of its first design; the forward, capped lower by
     its 4H threads' registers (measured on the card), fits."""
     limit = 232448
     pad4 = lambda h: (h + 3) & ~3
     fwd = lambda h: 4 * (pad4(h) * 3 * h + 32 * pad4(h) + 3 * h)
-    bwd = lambda h: 4 * (pad4(h) * ((3 * h) | 1) + pad4(h) * 24 + 24 * 3 * h + 3 * h)
     h = gru_cuda.SCAN_WIDEST_H["backward"]
-    assert bwd(h) <= limit < bwd(h + 1)
+    assert _bwd_smem(h, 16) <= limit < _bwd_smem(h + 1, 16)
+    assert h >= 123
     assert fwd(gru_cuda.SCAN_WIDEST_H["forward"]) <= limit

@@ -6,6 +6,8 @@ agrees with the JAX Pallas kernel in interpret mode (which the JAX package
 keeps off on the TPU, where it runs the XLA form), and the residual
 aggregation and its gradient agree with JAX's."""
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -92,6 +94,45 @@ def test_plain_matches_pallas_and_xla(rng, xdt):
     got_x = tsg.spmm_gather_xla(xt, tl.gather_fwd)
     want_x = np.asarray(jsg.spmm_gather_xla(xj, fwd), np.float32)
     assert _max_rel(got_x.float().numpy(), want_x) < (KERNEL_REL if xdt != "bf16" else 2.0 ** -8)
+
+
+# (tile, slot cap r, D, x dtype): the card sweep's ragged shapes, with slot
+# counts that are not a multiple of the kernel's 4-slot unroll and widths
+# that are not a multiple of its 16-byte loads (8 bf16 or 4 f32 columns),
+# but for bf16 at D 40 (the vector loads below the widest row)
+RAGGED = [(32, 3, 1, np.float32), (32, 9, 7, np.float32), (32, 13, 127, np.float32),
+          (64, 9, 40, "bf16"), (32, 5, 127, "bf16")]
+
+
+@pytest.mark.parametrize("tile,r,d,xdt", RAGGED,
+                         ids=[f"T{t}-R{r}-D{d}-{'bf16' if x == 'bf16' else 'f32'}"
+                              for t, r, d, x in RAGGED])
+def test_plain_matches_pallas_at_ragged_shapes(rng, tile, r, d, xdt):
+    """The plain version against the JAX interpret kernel and the XLA form
+    on both layouts (the reverse one with its column scale folded into x,
+    as the dispatch does), with one non-finite x row."""
+    src, dst = _city_like(rng, n=1200)
+    kw = dict(tile=tile, k=2, r=r, resid_frac=0.25)
+    tl, n_pad = tsg.prepare_gather_residual_mean_aggregate(src, dst, 1200, **kw)
+    jl, _ = jsg.prepare_gather_residual_mean_aggregate(src, dst, 1200, **kw)
+    assert tl.gather_fwd.r == r
+    x = rng.standard_normal((n_pad, d)).astype(np.float32)
+    x[0] = np.inf  # the first window's base row, where padding slots point (times 0)
+    for tb, jb in ((tl.gather_fwd, jl.gather_fwd), (tl.gather_rev, jl.gather_rev)):
+        xs = x if jb.col_scale is None else x * np.asarray(jb.col_scale)
+        jb = jax.tree.map(jnp.asarray, dataclasses.replace(jb, col_scale=None))
+        tb = dataclasses.replace(tb, col_scale=None)
+        xt, xj = torch.from_numpy(xs), jnp.asarray(xs)
+        if xdt == "bf16":
+            xt, xj = xt.to(torch.bfloat16), xj.astype(jnp.bfloat16)
+        got = tsg.spmm_gather(xt, tb).float().numpy()
+        bound = KERNEL_REL if xdt != "bf16" else 2.0 ** -8
+        for want in (jsg.spmm_gather_pallas(xj, jb, interpret=True), jsg.spmm_gather_xla(xj, jb)):
+            want = np.asarray(want, np.float32)
+            np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+            fin = np.isfinite(want)
+            assert _max_rel(got[fin], want[fin]) < bound
+        assert not np.isfinite(got).all()
 
 
 def test_plain_adds_in_slot_order(rng):
