@@ -33,6 +33,20 @@ launch count set to 0 just before a path and read just after it:
     model's weights then run inference with ``int8_features=True`` (the
     int8 banded kernel): bit-equal to its plain version, within 5e-2 of
     max|logit| of the f32 path;
+  * the same pure banded layouts widened (``widen_banded``, the TPU
+    kernel's ``wide`` branch): the kernel on them bit-equal to the narrow
+    kernel both ways and timed beside it, bench.py's ``BENCH_SPMM=banded
+    BENCH_FUSED=0 BENCH_BANDED_WIDE=1`` two-layer step (20 steps) and the
+    unfused classifier (20 Adam steps) on them;
+  * the halo overlap layers (``parallel/halo_fused``, what
+    ``cli/train_halo.py --fused-ln`` runs) on the same graph planned for 4
+    shards (``banded_k=8``, hidden 96), run one shard after another on
+    this card, each shard's halo table gathered from the global x in place
+    of the all-to-all (not ported yet): ``halo_fused_sage_ln_ov`` and
+    ``halo_fused_sage_ov`` forward and backward against the plain versions,
+    the fused forward's ``ypre`` output, the four shards put back together
+    against the one-chip layer, and times on the shard with the most
+    boundary groups;
   * the same graph as bench.py's one-hot (tile 512, 512-slot chunks, 2 a
     step), dense (int8 counts, tile 128, 4-block padding), hybrid
     (min_pair_edges 300) and gather (tile 128, K=12, R=24) layouts: the one-hot,
@@ -70,8 +84,9 @@ launch count set to 0 just before a path and read just after it:
     shapes on a small graph: tiles 32, 64 and 128, widths (D, H) of (40,
     4), (4, 40) and (128, 96), f32 and bf16, int8 counts and f32 weights,
     with and without scales, x and the residual, the forward's bias,
-    LayerNorm and activation, and a cmap layout; each against its plain
-    version. Then the
+    LayerNorm, activation and ``ypre`` output, and a cmap layout; each
+    against its plain version; and ``spmm_banded`` on wide layouts (tiles
+    32-128, spans 1-8), each case bit-equal to the narrow kernel. Then the
     dense SpMM over the same tiles, D 4, 40, 96 and 128, int8, f32 and
     bf16 tiles, both directions, with and without a row scale, and layouts
     of 1, 5 and 70 slots a block;
@@ -1444,7 +1459,7 @@ def graph_plain_versions(mods: dict):
                                               getattr(mods[mod], f"{name}_plain")))
     for name in ("banded_sage_fwd", "banded_sage_bwd", "banded_sage_ln_bwd"):
         plain = getattr(tsf, f"{name}_plain")
-        for mod in (tsf, tbr):
+        for mod in (tsf, tbr, mods["halo_fused"]):
             if hasattr(mod, name):
                 stack.enter_context(mock.patch.object(mod, name, plain))
     return stack
@@ -1981,6 +1996,327 @@ def check_int8_inference(mods: dict, model, pure, n_pad: int, dev) -> dict:
             sum(counts.values()) != sum(want.values()):
         raise AssertionError(f"int8 inference: launches {counts}, want {want}")
     return counts
+
+
+def check_wide(mods: dict, pure, n_pad: int, graph, dev, smi: str) -> dict:
+    """The wide banded layout (widen_banded, the TPU kernel's `wide` branch)
+    on bench.py's graph: the pure banded layouts widened on the card; the
+    kernel on them bit-equal to the narrow kernel in both directions (bf16
+    and f32 x) and within BANDED_REL of the plain version; timed beside the
+    narrow kernel in turns (narrow, wide, wide, narrow), with the plain
+    version and cuSPARSE; then bench.py's BENCH_SPMM=banded BENCH_FUSED=0
+    BENCH_BANDED_WIDE=1 two-layer step over spmm_banded_apply on them, and
+    the unfused classifier 20 Adam steps. Returns the kernel line's entry."""
+    tsb = mods["spmm_banded"]
+    pf, pr = pure
+    t0 = time.perf_counter()
+    wf, wr = tsb.widen_banded(pf), tsb.widen_banded(pr)
+    torch.cuda.synchronize()
+    log(f"wide layouts: a {tuple(pf.a.shape)} -> {tuple(wf.a.shape)} (forward), "
+        f"{tuple(pr.a.shape)} -> {tuple(wr.a.shape)} (reverse), widened on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    d = BENCH_DIM
+    rng = np.random.default_rng(SEED + 5)
+    err = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.from_numpy(rng.standard_normal((n_pad, d)).astype(np.float32)).to(dev, dt)
+        for narrow, wide, what in ((pf, wf, "forward layout"),
+                                   (pr, wr, "reverse layout (1/deg on x's rows)")):
+            got, again = tsb.spmm_banded(x, wide), tsb.spmm_banded(x, wide)
+            want, plain = tsb.spmm_banded(x, narrow), tsb.spmm_banded_plain(x, wide)
+            torch.cuda.synchronize()
+            rel = ((got.float() - plain.float()).abs().max()
+                   / plain.float().abs().max()).item()
+            name = "bf16" if dt == torch.bfloat16 else "f32"
+            log(f"spmm_banded wide {name} {what}: bit-equal to the narrow kernel "
+                f"{torch.equal(got, want)}, two launches bit-equal {torch.equal(got, again)}, "
+                f"max|err|/max|plain| {rel:.2e} (tol {BANDED_REL})")
+            if not torch.equal(got, want) or not torch.equal(got, again) or \
+                    rel > BANDED_REL or not torch.isfinite(got).all():
+                raise AssertionError(f"spmm_banded wide {name} {what} disagrees")
+            err = max(err, (got.float() - plain.float()).abs().max().item())
+    x = torch.from_numpy(rng.standard_normal((n_pad, d)).astype(np.float32)).to(dev,
+                                                                               torch.bfloat16)
+    turns = [timed(lambda: tsb.spmm_banded(x, lay), iters=20)[0] for lay in (pf, wf, wf, pf)]
+    ms = (turns[1] + turns[2]) / 2
+    plain_ms, _ = timed(lambda: tsb.spmm_banded_plain(x, wf), iters=3, warmup=1)
+    m_csr = mean_csr(*graph, n_pad, dev)
+    x32 = x.float()
+    library_ms, _ = timed(lambda: torch.sparse.mm(m_csr, x32), iters=10)
+    del m_csr, x32
+    cost = banded_cost(wf, d, d, 2, "spmm")
+    bound_ms, bound_by = bound(*cost, PEAK_BF16_FLOP_S)
+    log(f"spmm_banded wide timing (pure banded forward layout, bf16, in turns narrow, wide, "
+        f"wide, narrow): {', '.join(f'{t:.4f}' for t in turns)} ms; wide {ms:.4f} ms, narrow "
+        f"{(turns[0] + turns[3]) / 2:.4f} ms, plain {plain_ms:.4f} ms, cuSPARSE {library_ms:.4f} "
+        f"ms, bound {bound_ms:.4f} ms ({bound_by}: {cost[0] / 1e6:.1f} MB), on {smi}")
+    check_bench_step(
+        mods, "banded wide (BENCH_SPMM=banded BENCH_FUSED=0 BENCH_BANDED_WIDE=1)",
+        lambda h, wa, wb: torch.relu(tsb.spmm_banded_apply(h, wf, wr, True) @ wa + h @ wb),
+        n_pad, {"spmm_banded": 4}, ("slot_spmm_kernel",), len(graph[0]), dev, smi)
+    counts, _ = check_classifier(mods, (wf, wr), n_pad, {}, "unfused, wide banded",
+                                 {"spmm_banded": 3}, dev)
+    return dict(name="spmm_banded", route="cuda", source="sldm_gnn_tpu_torch/csrc/spmm_banded.cu",
+                replaces="sldm_gnn_tpu/ops/spmm_banded.py:478", layout="wide",
+                path="classifier unfused, wide", launches=counts["spmm_banded"],
+                shape=f"N={n_pad} D={d} pure banded forward layout, wide (a {tuple(wf.a.shape)}), "
+                      f"bf16", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+# the halo phase: cli/train_halo.py --fused-ln's defaults (--banded-k 8,
+# --hidden 96, negative slope 0.1, the overlap layers) on bench.py's graph
+# split over 4 shards, run here one shard after another
+HALO_EP = 4
+HALO_K = 8
+HALO_HIDDEN = 96
+HALO_SLOPE = 0.1
+LN_EPS = 1e-5
+# the shards put back together against the one-chip layer: two kernel paths
+# over different layouts (tile 128 and K 8 against the banded-residual
+# layout's K 12), each within BANDED_REL of max|out| of the same exact
+# layer (bf16 operands and a bf16 output), so within twice that of each
+# other
+HALO_ASSEMBLED_REL = 2 * BANDED_REL
+
+
+def check_halo(mods: dict, graph, resid, dev, smi: str) -> dict:
+    """The per-shard overlap layers of the halo path on bench.py's graph:
+    plan_halo_fused(ep=4, banded_k=8), x [200000, 128] bf16, H 96. For each
+    shard in turn the card gathers its halo table from the global x by
+    send_idx (in place of the all-to-all, which is not ported yet), then
+    runs halo_fused_sage_ln_ov and halo_fused_sage_ov forward and backward
+    through the kernels (the main path: launches counted), with the loss
+    sum(out ** 2) / 2 over the shard's real rows. Each is held
+    against the plain versions on the card (output at BANDED_REL of
+    max|out|, dx, dhalo and the partial weight gradients at STEP_GRAD_TOL),
+    and y_pre_c's mapped slots at BANDED_REL; the shards' outputs, put back
+    in global order, and their dx (plus the dhalo rows sent back to their
+    owners) and summed weight gradients are held against the one-chip
+    banded_residual_sage(_ln)_apply on the whole graph. Then, on the shard
+    with the most boundary groups, the layer and the fused forward with and
+    without ypre are timed. Returns the kernel line's entry."""
+    thf, tsf, tbr = mods["halo_fused"], mods["sage_fused"], mods["banded_residual"]
+    bf16 = torch.bfloat16
+    src, dst = graph
+    n, d, h, ep = BENCH_NODES, BENCH_DIM, HALO_HIDDEN, HALO_EP
+    t0 = time.perf_counter()
+    plan = thf.plan_halo_fused(src, dst, n, ep, banded_k=HALO_K)
+    t_plan = time.perf_counter() - t0
+    gplan = plan.to(dev)
+    bnd = plan.bnd
+    n_local, n_pad_local, kt = plan.n_local, plan.n_pad_local, bnd.kt
+    groups_b = (bnd.rg_b > 0).sum(1).tolist()
+    f0, r0, _ = plan.shard(0)
+    log(f"halo plan of {n} nodes, {len(src)} edges over {ep} shards (banded_k {HALO_K}, tile "
+        f"{f0.tile}): built in {t_plan:.2f} s on the host; n_local {n_local}, n_pad_local "
+        f"{n_pad_local}, span {f0.s_span}/{r0.s_span}, wsz {f0.wsz}; halo table {bnd.h_rows} "
+        f"rows; boundary groups a shard "
+        f"{groups_b} (m_b {bnd.m_b}), interior-overflow edges a shard "
+        f"{(bnd.i_w_f > 0).sum(1).tolist()} (m_io {bnd.m_io}, m_rev {bnd.m_rev})")
+    rng = np.random.default_rng(SEED + 7)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev, bf16)
+    prm = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+        wl=rng.standard_normal((d, h)).astype(np.float32) * 0.05,
+        wr=rng.standard_normal((d, h)).astype(np.float32) * 0.05,
+        b=rng.standard_normal(h).astype(np.float32) * 0.1,
+        gamma=1 + 0.2 * rng.standard_normal(h).astype(np.float32),
+        beta=0.1 * rng.standard_normal(h).astype(np.float32)).items()}
+    xs = torch.zeros((ep * n_local, d), dtype=bf16, device=dev)
+    xs[:n] = x
+    send = gplan.send_idx.long()
+    layers = {"halo_fused_sage_ln_ov": (thf.halo_fused_sage_ln_ov,
+                                        ("wl", "wr", "b", "gamma", "beta"), (HALO_SLOPE, LN_EPS)),
+              "halo_fused_sage_ov": (thf.halo_fused_sage_ov, ("wl", "wr", "b"), (HALO_SLOPE,))}
+
+    def halo_rows(p):
+        """Rows of the global x that shard p receives: the exchange's
+        delivery, gathered on this card in its place."""
+        return (torch.arange(ep, device=dev)[:, None] * n_local + send[:, p, :]).reshape(-1)
+
+    def shard_inputs(p):
+        xp = torch.zeros((n_pad_local, d), dtype=bf16, device=dev)
+        xp[:n_local] = xs[p * n_local:(p + 1) * n_local]
+        return xp, xs[halo_rows(p)]
+
+    def square_loss_cotangent(y, rows):
+        """d/dy of sum(y[:rows] ** 2) / 2: smooth at the activation's kink,
+        so that a bf16 rounding that flips a near-zero pre-activation moves
+        the gradients by little (ROADMAP's hazards)"""
+        g = y.detach().clone()
+        g[rows:] = 0
+        return g
+
+    shard_lays = [gplan.shard(p) for p in range(ep)]
+
+    def run(layer, p, inputs=None):
+        """The layer on shard p, forward and backward of the square loss on
+        its real rows: (out, [dx, dhalo, d params...])."""
+        fn, names, extra = layers[layer]
+        xp, halo = inputs or shard_inputs(p)
+        leaves = [xp.detach().requires_grad_(), halo.detach().requires_grad_()] + [
+            prm[k].clone().requires_grad_() for k in names]
+        y = fn(*leaves, *shard_lays[p], True, *extra)
+        torch.autograd.backward(y, square_loss_cotangent(y, min(n_local, n - p * n_local)))
+        return y.detach(), [v.grad for v in leaves]
+
+    # the main path: both layers on every shard, launches counted
+    set_counts_to_zero(mods)
+    got = {(layer, p): run(layer, p) for layer in layers for p in range(ep)}
+    torch.cuda.synchronize()
+    counts = read_counts(mods)
+    want = {"banded_sage_fwd": 2 * ep, "banded_sage_ln_bwd": ep, "banded_sage_bwd": ep}
+    log(f"halo layers, {ep} shards x 2 layers forward and backward through the kernels: "
+        f"launches {counts} (want {want}; a layer: 1 banded_sage_fwd with ypre and 1 "
+        f"backward)")
+    if any(counts[k] != v for k, v in want.items()) or \
+            sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"halo layers: launches {counts}, want {want}")
+
+    with graph_plain_versions(mods):
+        plain = {key: run(*key) for key in got}
+    for (layer, p), (y, gr) in got.items():
+        yp, gp = plain[(layer, p)]
+        rel = ((y.float() - yp.float()).abs().max() / yp.float().abs().max()).item()
+        names = ("x", "halo") + layers[layer][1]
+        worst = step_grad_excess(f"{layer} shard {p}", names, gr, gp)
+        log(f"{layer} shard {p}: output max|err|/max|plain| {rel:.2e} (tol {BANDED_REL}); dx, "
+            f"dhalo, {', '.join('d' + k for k in layers[layer][1])} within rtol "
+            f"{STEP_GRAD_TOL} + {STEP_GRAD_TOL} * (max|g| + {STEP_GRAD_FLOOR}) (largest excess "
+            f"{worst:.3e})")
+        if rel > BANDED_REL or not torch.isfinite(y).all():
+            raise AssertionError(f"{layer} shard {p}: output disagrees with the plain versions")
+    del plain
+
+    # y_pre_c of every shard's fused forward (the --fused-ln layer's call)
+    ln = (prm["gamma"], prm["beta"])
+    ypre_err = 0.0
+    for p in range(ep):
+        int_fwd, _, b_p = shard_lays[p]
+        xp, _ = shard_inputs(p)
+        kw = dict(negative_slope=HALO_SLOPE, ln=ln, ypre=(b_p.rg_b, b_p.m_b),
+                  resid=(thf.io_fwd_compact(xp, b_p).to(bf16), b_p.rg_io))
+        outs = tsf.banded_sage_fwd(xp, prm["wl"], prm["wr"], prm["b"], int_fwd, **kw)
+        again = tsf.banded_sage_fwd(xp, prm["wl"], prm["wr"], prm["b"], int_fwd, **kw)
+        want_o = tsf.banded_sage_fwd_plain(xp, prm["wl"], prm["wr"], prm["b"], int_fwd, **kw)
+        live = int(b_p.rg_b.max().item())
+        yk, yp = outs[-1][1:live + 1], want_o[-1][1:live + 1]
+        rel = ((yk - yp).abs().max() / yp.abs().max()).item() if live else 0.0
+        stable = all(torch.equal(a, b) for a, b in zip(outs, again))
+        log(f"banded_sage_fwd ypre shard {p}: y_pre_c [{b_p.m_b}, {kt}, {h}], slots 1..{live} "
+            f"max|err|/max|plain| {rel:.2e} (tol {BANDED_REL}); two launches bit-equal {stable}")
+        if rel > BANDED_REL or not stable or not torch.isfinite(outs[-1]).all():
+            raise AssertionError(f"banded_sage_fwd ypre shard {p} disagrees")
+        if live:
+            ypre_err = max(ypre_err, (yk - yp).abs().max().item())
+
+    # the shards put back together against the one-chip layer on the whole graph
+    n_pad = resid.n_pad
+    for layer, (fn, names, extra) in layers.items():
+        out = torch.zeros((ep * n_local, h), dtype=bf16, device=dev)
+        dxs = torch.zeros((ep * n_local, d), dtype=torch.float32, device=dev)
+        dparams = [torch.zeros_like(prm[k]) for k in names]
+        for p in range(ep):
+            y, gr = got[(layer, p)]
+            out[p * n_local:(p + 1) * n_local] = y[:n_local]
+            dxs[p * n_local:(p + 1) * n_local] += gr[0][:n_local].float()
+            dxs.index_add_(0, halo_rows(p), gr[1].float())  # dhalo back to its owners
+            for acc, gv in zip(dparams, gr[2:]):
+                acc += gv
+        xg = torch.zeros((n_pad, d), dtype=bf16, device=dev)
+        xg[:n] = x
+        xg.requires_grad_()
+        ps = [prm[k].clone().requires_grad_() for k in names]
+        if layer == "halo_fused_sage_ln_ov":
+            y1 = tbr.banded_residual_sage_ln_apply(xg, *ps, resid, True, HALO_SLOPE, LN_EPS)
+        else:
+            y1 = tbr.banded_residual_sage_apply(xg, *ps, resid, True, HALO_SLOPE)
+        torch.autograd.backward(y1, square_loss_cotangent(y1, n))
+        rel = ((out[:n].float() - y1[:n].float()).abs().max()
+               / y1[:n].float().abs().max()).item()
+        worst = step_grad_excess(f"{layer} assembled", ("x",) + names,
+                                 [dxs[:n]] + dparams, [xg.grad[:n]] + [v.grad for v in ps])
+        log(f"{layer}: the {ep} shards' output in global order against the one-chip "
+            f"{'banded_residual_sage_ln_apply' if 'ln' in layer else 'banded_residual_sage_apply'}"
+            f" (banded-residual layout, tile {BANDED_TILE}, K {BANDED_K}; kernels on both sides, "
+            f"bf16, the sums in other orders): max|err|/max|out| {rel:.2e} (tol "
+            f"{HALO_ASSEMBLED_REL}); "
+            f"dx (each shard's plus its dhalo rows sent back) and the summed partial "
+            f"{', '.join('d' + k for k in names)} within rtol {STEP_GRAD_TOL} + {STEP_GRAD_TOL} "
+            f"* (max|g| + {STEP_GRAD_FLOOR}) (largest excess {worst:.3e})")
+        if rel > HALO_ASSEMBLED_REL or not torch.isfinite(out[:n]).all():
+            raise AssertionError(f"{layer}: the shards do not assemble to the one-chip layer")
+        del xg, ps, y1, dxs
+    del got
+    torch.cuda.empty_cache()
+
+    # times on the shard with the most boundary groups
+    p = int(np.argmax(groups_b))
+    int_fwd, _, b_p = shard_lays[p]
+    inputs = shard_inputs(p)
+    xp, halo = inputs
+    for layer, (fn, names, extra) in layers.items():
+        args = [prm[k] for k in names]
+        with torch.no_grad():
+            fwd_ms, _ = timed(lambda: fn(xp, halo, *args, *shard_lays[p], True, *extra),
+                              iters=10)
+        set_counts_to_zero(mods)
+        run(layer, p, inputs)
+        torch.cuda.synchronize()
+        per_layer = {k: v for k, v in read_counts(mods).items() if v}
+        both_ms, _ = timed(lambda: run(layer, p, inputs), iters=10)
+        log(f"{layer} shard {p} ({groups_b[p]} boundary groups, m_b {b_p.m_b}): forward "
+            f"{fwd_ms:.4f} ms, backward {both_ms - fwd_ms:.4f} ms (forward and backward "
+            f"{both_ms:.4f} ms, CUDA events around back-to-back calls); launches a layer "
+            f"{per_layer}; on {smi}")
+        profile_steps(lambda: run(layer, p, inputs), f"{layer} shard {p} forward and backward",
+                      BANDED_KERNEL_KEYS)
+    r_io = thf.io_fwd_compact(xp, b_p).to(bf16)
+    kw = dict(negative_slope=HALO_SLOPE, ln=ln, resid=(r_io, b_p.rg_io))
+    kw_y = dict(kw, ypre=(b_p.rg_b, b_p.m_b))
+    # ypre with no group mapped: the output's cost without its stores
+    kw_0 = dict(kw, ypre=(torch.zeros_like(b_p.rg_b), b_p.m_b))
+    fwd_args = (xp, prm["wl"], prm["wr"], prm["b"], int_fwd)
+    turns = [timed(lambda: tsf.banded_sage_fwd(*fwd_args, **k), iters=20)[0]
+             for k in (kw, kw_y, kw_0, kw_0, kw_y, kw)]
+    ms = (turns[1] + turns[4]) / 2
+    plain_ms, _ = timed(lambda: tsf.banded_sage_fwd_plain(*fwd_args, **kw_y), iters=3, warmup=1)
+    # the library yardstick: cuSPARSE over the shard's interior edges (the
+    # global 1/deg), the dense products, bias, LayerNorm and the activation
+    # in f32
+    own = (dst // n_local == p) & (src // n_local == p)
+    deg = np.bincount(dst, minlength=n)
+    w = torch.from_numpy((1.0 / np.maximum(deg, 1))[dst[own]].astype(np.float32))
+    idx = torch.from_numpy(np.stack([dst[own] - p * n_local, src[own] - p * n_local]))
+    m_int = torch.sparse_coo_tensor(idx, w, (n_pad_local, n_pad_local)).coalesce().to(
+        dev).to_sparse_csr()
+    x32, wl32, wr32 = xp.float(), prm["wl"], prm["wr"]
+
+    def library():
+        y = torch.sparse.mm(m_int, x32) @ wl32 + x32 @ wr32 + prm["b"]
+        return torch.nn.functional.leaky_relu(torch.nn.functional.layer_norm(
+            y, (h,), prm["gamma"], prm["beta"], LN_EPS), HALO_SLOPE)
+
+    library_ms, _ = timed(library, iters=10)
+    ypre_bytes = b_p.m_b * kt * h * 4
+    nbytes, flops = banded_cost(int_fwd, d, h, 2, "fwd",
+                                r_io.numel() * 2 + n_pad_local * (h * 2 + 4) + ypre_bytes)
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOP_S)
+    log(f"banded_sage_fwd shard {p} (LN, LeakyReLU {HALO_SLOPE}, interior-overflow residual), "
+        f"in turns without, with, with none mapped, with none mapped, with, without ypre: "
+        f"{', '.join(f'{t:.4f}' for t in turns)} ms; with ypre {ms:.4f} ms, with none mapped "
+        f"{(turns[2] + turns[3]) / 2:.4f} ms, without {(turns[0] + turns[5]) / 2:.4f} ms "
+        f"(y_pre_c {ypre_bytes / 1e6:.2f} MB), plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP)")
+    return dict(name="banded_sage_fwd", route="cuda",
+                source="sldm_gnn_tpu_torch/csrc/sage_fused_fwd.cu",
+                replaces="sldm_gnn_tpu/ops/sage_fused.py:283", layout="ypre",
+                path="halo overlap", launches=counts["banded_sage_fwd"],
+                shape=f"shard {p} of {ep}: N={n_pad_local} D={d} H={h} bf16, LN, LeakyReLU "
+                      f"{HALO_SLOPE}, interior-overflow residual, ypre m_b {b_p.m_b}",
+                max_abs_err=ypre_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def check_int8_sddmm(mods: dict, lays: dict, graph, gen, dev) -> list[dict]:
@@ -2683,6 +3019,16 @@ SWEEP_CMAP_NODES = 4096
 # LeakyReLU) with LayerNorm and without
 FWD_EPILOGUES = ((False, False, None), (True, False, 0.0), (False, False, 0.1),
                  (True, True, None), (False, True, 0.0), (True, True, 0.1))
+# the wide layout's sweep: one-sided graphs whose source band is exactly
+# 1 to 8 tiles (reach (s - 1) * tile - tile / 2 above each row), feature
+# widths through the element path (4: rows of 8 or 16 bytes; 40) and TMA
+# (128)
+WIDE_SWEEP_SPANS = tuple(range(1, 9))
+WIDE_SWEEP_D = (4, 40, 128)
+# the fused forward's ypre cases: the group -> slot maps (none mapped, every
+# group mapped, a random half mapped among spare slots), with and without
+# LayerNorm and the residual
+YPRE_MAPS = ("none", "all", "random")
 
 
 def check_ragged_sweep(mods: dict, dev) -> int:
@@ -2692,8 +3038,10 @@ def check_ragged_sweep(mods: dict, dev) -> int:
     (D, H) in SWEEP_WIDTHS; bf16 and f32 activations; int8 counts and f32
     weight tiles (a_f32); the forward layout (rs), the reverse layout (cs)
     and neither scale; with and without x; the compact residual; the fused
-    forward's FWD_EPILOGUES; and a cmap layout. Returns the number of cases
-    held."""
+    forward's FWD_EPILOGUES and its ypre output (YPRE_MAPS, LayerNorm and
+    the residual on and off: y_pre_c held with the other outputs, its
+    unmapped slots zero in both); and a cmap layout. Then the wide layout's
+    cases (wide_sweep). Returns the number of cases held."""
     tsb, tsf, tbr, tcm = (mods[k] for k in ("spmm_banded", "sage_fused", "banded_residual",
                                             "spmm_cmap"))
     gen = torch.Generator().manual_seed(SEED)
@@ -2748,6 +3096,15 @@ def check_ragged_sweep(mods: dict, dev) -> int:
                          f"{dn} {what}, bias {b_on}, LN {ln_on}, slope {slope}",
                          lambda: tsf.banded_sage_fwd(x, wl, wr, bv, lay, **kw),
                          lambda: tsf.banded_sage_fwd_plain(x, wl, wr, bv, lay, **kw))
+                steps = resid.steps
+                for kind, (what, lay, rf), ln_on in itertools.product(
+                        YPRE_MAPS, fwd[::2], (False, True)):
+                    rg_b, m_b = ypre_map(kind, steps, gen)
+                    kw = dict(negative_slope=0.1, resid=rf, ln=ln if ln_on else None,
+                              ypre=(rg_b.to(dev), m_b))
+                    hold("banded_sage_fwd", f"{dn} {what}, ypre {kind} (m_b {m_b}), LN {ln_on}",
+                         lambda: tsf.banded_sage_fwd(x, wl, wr, bias, lay, **kw),
+                         lambda: tsf.banded_sage_fwd_plain(x, wl, wr, bias, lay, **kw))
                 r_r = (tbr.residual_rev_compact(g, resid).to(dt), resid.rg_rev)
                 bwd = [("with x", rev8, dict(x=x)), ("without x", rev8, {}),
                        ("no 1/deg, with x", dataclasses.replace(rev8, col_scale=None), dict(x=x)),
@@ -2798,6 +3155,70 @@ def check_ragged_sweep(mods: dict, dev) -> int:
           clay, c_pad)
     log(f"ragged sweep: {n_cases} cases within {BANDED_REL} of max|plain|, two launches "
         f"bit-equal (worst {', '.join(f'{k} {v:.2e}' for k, v in worst.items())}), "
+        f"{time.perf_counter() - t0:.1f} s")
+    return n_cases + wide_sweep(tsb, gen, dev)
+
+
+def ypre_map(kind: str, steps: int, gen) -> tuple[torch.Tensor, int]:
+    """A group -> boundary slot map (int32 [steps]) and its slot count m_b:
+    no group mapped, every group mapped in order, or a random half of the
+    groups on random distinct slots among twice as many."""
+    if kind == "none":
+        return torch.zeros(steps, dtype=torch.int32), 1
+    if kind == "all":
+        return torch.arange(1, steps + 1, dtype=torch.int32), steps + 1
+    rg = torch.zeros(steps, dtype=torch.int32)
+    groups = torch.randperm(steps, generator=gen)[: max(1, steps // 2)]
+    rg[groups] = (torch.randperm(2 * len(groups), generator=gen)[: len(groups)] + 1).int()
+    return rg, 2 * len(groups) + 1
+
+
+def wide_sweep(tsb, gen, dev) -> int:
+    """spmm_banded on wide layouts (widen_banded): tiles SWEEP_TILES, source
+    bands WIDE_SWEEP_SPANS, widths WIDE_SWEEP_D, int8 counts and f32
+    weights, bf16 and f32 x, the forward layout (rs), the reverse one (cs)
+    and no scales. Each case bit-equal to the narrow kernel on the same
+    graph, within BANDED_REL of the plain version, two launches
+    bit-equal. Returns the number of cases held."""
+    t0 = time.perf_counter()
+    n_cases, worst = 0, 0.0
+    for tile, span in itertools.product(SWEEP_TILES, WIDE_SWEEP_SPANS):
+        rng = np.random.default_rng(SEED + span)
+        dst = np.repeat(np.arange(SWEEP_NODES), SWEEP_DEG)
+        reach = max(0, (span - 1) * tile - tile // 2)
+        src = np.minimum(dst + rng.integers(0, reach + 1, len(dst)), SWEEP_NODES - 1)
+        for dtype in (np.int8, np.float32):
+            fwd, rev, n_pad = tsb.prepare_banded_mean_aggregate(src, dst, SWEEP_NODES, tile=tile,
+                                                                k=4, dtype=dtype)
+            if fwd.s_span != span:
+                raise AssertionError(f"wide sweep: the graph for span {span} at tile {tile} "
+                                     f"has span {fwd.s_span}")
+            lays = [(what, lay.to(dev)) for what, lay in (
+                ("forward (rs)", fwd), ("reverse (cs)", rev),
+                ("no scales", dataclasses.replace(fwd, row_scale=None)))]
+            lays = [(what, narrow, tsb.widen_banded(narrow)) for what, narrow in lays]
+            for (what, narrow, wide), d, dt in itertools.product(
+                    lays, WIDE_SWEEP_D, (torch.bfloat16, torch.float32)):
+                x = torch.randn((n_pad, d), generator=gen).to(dev, dt)
+                got, again = tsb.spmm_banded(x, wide), tsb.spmm_banded(x, wide)
+                want, plain = tsb.spmm_banded(x, narrow), tsb.spmm_banded_plain(x, wide)
+                torch.cuda.synchronize()
+                rel = ((got.float() - plain.float()).abs().max()
+                       / plain.float().abs().max().clamp_min(1e-30)).item()
+                case = (f"tile {tile} span {span} {np.dtype(dtype).name} {what} D {d} "
+                        f"{'bf16' if dt == torch.bfloat16 else 'f32'}")
+                if not torch.equal(got, want) or not torch.equal(got, again) or \
+                        rel > BANDED_REL or not torch.isfinite(got).all():
+                    raise AssertionError(f"wide sweep {case}: bit-equal to narrow "
+                                         f"{torch.equal(got, want)}, two launches bit-equal "
+                                         f"{torch.equal(got, again)}, max|err|/max|plain| "
+                                         f"{rel:.3e} (tol {BANDED_REL})")
+                worst = max(worst, rel)
+                n_cases += 1
+    log(f"wide sweep: {n_cases} cases of spmm_banded on wide layouts (tiles {SWEEP_TILES}, spans "
+        f"{WIDE_SWEEP_SPANS[0]}-{WIDE_SWEEP_SPANS[-1]}, D {WIDE_SWEEP_D}, int8/f32 A, bf16/f32 x, "
+        f"rs/cs/no scales), each bit-equal to the narrow kernel and two launches bit-equal, "
+        f"within {BANDED_REL} of the plain version (worst {worst:.2e}), "
         f"{time.perf_counter() - t0:.1f} s")
     return n_cases
 
@@ -3066,6 +3487,7 @@ def main() -> int:
     from sldm_gnn_tpu_torch.ops import knn as knn_ops
     from sldm_gnn_tpu_torch.ops import sddmm, spmm_banded, spmm_cmap, spmm_dense, spmm_gather
     from sldm_gnn_tpu_torch.ops import spmm_hybrid, spmm_mk
+    from sldm_gnn_tpu_torch.parallel import halo_fused
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -3102,7 +3524,7 @@ def main() -> int:
             "sage_fused": sage_fused, "banded_residual": banded_residual, "spmm": spmm,
             "spmm_dense": spmm_dense, "spmm_gather": spmm_gather, "spmm_hybrid": spmm_hybrid,
             "quant": quant, "sddmm": sddmm, "reorder": reorder, "spmm_mk": spmm_mk,
-            "spmm_cmap": spmm_cmap, "csr": csr}
+            "spmm_cmap": spmm_cmap, "csr": csr, "halo_fused": halo_fused}
     scan_entries = check_gru_scan(mods, gen, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         launches = check_serving(gru_cuda, knn_ops, Path(tmp), dev)
@@ -3152,6 +3574,10 @@ def main() -> int:
     entries += banded_entries
     counts_int8 = check_int8_inference(mods, model_unfused, pure, n_pad, dev)
     del model_unfused
+    torch.cuda.empty_cache()
+    entries.append(check_wide(mods, pure, n_pad, graph, dev, smi))
+    torch.cuda.empty_cache()
+    entries.append(check_halo(mods, graph, resid, dev, smi))
     torch.cuda.empty_cache()
 
     lays = layout_set(mods, graph, dev)

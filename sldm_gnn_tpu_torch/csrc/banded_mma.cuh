@@ -48,7 +48,11 @@
 // looked up once, a chunk ahead of the block's first copy, into a table in
 // shared memory), or src[b * s_span + s] as given (the dense layout's
 // explicit source blocks: read by every thread a chunk ahead of the slot's
-// first copy, so s_span has no bound there).
+// first copy, so s_span has no bound there). A's slot tile is read where it
+// lies: tile s of block b of the narrow layout [nb, s_span, tile, tile], or
+// columns s * tile .. of block b's rows of the wide one [nb, tile, s_span *
+// tile] (widen_banded); the chunks, their order and the sums are the same,
+// so the two layouts give the same bits.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the encoder comes through the runtime's entry-point query)
@@ -460,10 +464,12 @@ __host__ __device__ inline int a_elem_bytes(int a_kind) {
 }
 
 struct SlotArgs {
-  CUtensorMap map_a;  // A as [nb * s_span * tile, tile], boxes [tile, 32]
+  CUtensorMap map_a;  // A as [nb * s_span * tile, tile] (wide: [nb * tile, s_span * tile]),
+                      // boxes [tile, 32]
   CUtensorMap map_x;  // B as [nb * tile, width], boxes of 32 rows
-  const void* a;      // [nb, s_span, tile, tile] of a_kind
+  const void* a;      // [nb, s_span, tile, tile] of a_kind (wide: [nb, tile, s_span * tile])
   int a_kind;         // kAInt8, kAF32 or kABf16
+  int wide;           // A's slots folded into columns (widen_banded), read in place
   int amode;  // kScale*: A's column scale
   const int* bo;
   const int* cmap;  // [nb * s_span] or NULL
@@ -502,8 +508,9 @@ __host__ __device__ inline int tile_rows64(int tile) { return (tile + 63) / 64 *
 // x_i8: one box of 32 rows of 128 bytes, columns past the width read as 0).
 // A kI8 loop's client asks SlotLoop::make_maps / ring_bytes, which pass it.
 inline void make_slot_maps(SlotArgs& p, bool x_i8 = false) {
-  const size_t a_rows = static_cast<size_t>(p.nb) * p.s_span * p.tile;
-  p.tma_a = make_map(&p.map_a, p.a, a_elem_bytes(p.a_kind), a_rows, p.tile, p.tile, kChunk,
+  const size_t a_rows = static_cast<size_t>(p.nb) * (p.wide ? 1 : p.s_span) * p.tile;
+  const int a_cols = p.wide ? p.s_span * p.tile : p.tile;
+  p.tma_a = make_map(&p.map_a, p.a, a_elem_bytes(p.a_kind), a_rows, a_cols, p.tile, kChunk,
                      p.a_kind == kAF32    ? CU_TENSOR_MAP_SWIZZLE_128B
                      : p.a_kind == kABf16 ? CU_TENSOR_MAP_SWIZZLE_64B
                                           : CU_TENSOR_MAP_SWIZZLE_32B);
@@ -690,7 +697,11 @@ struct SlotLoop {
                               : table[2 * kMaxCmapSlots + par] + is;
     unsigned char* st = ring + ist * stage_bytes;
     const int j0 = ij * kChunk;
-    const int arow = (b * p.s_span + is) * p.tile;  // the slot tile's first row of A's 2-D view
+    // the slot tile's first row and column of A's 2-D view: slot is of block
+    // b is rows (b * s_span + is) * tile .. (narrow) or columns is * tile ..
+    // of rows b * tile .. (wide), read where it lies
+    const int arow = (p.wide ? b : b * p.s_span + is) * p.tile;
+    const int acol = (p.wide ? is * p.tile : 0) + j0;
     const size_t r0 = static_cast<size_t>(src) * p.tile + j0;
     float* vec = reinterpret_cast<float*>(st + a_bytes + b_bytes);
     const float* vs[2] = {p.cs, p.rstd};
@@ -703,7 +714,7 @@ struct SlotLoop {
       for (int v = 0; v < 2; ++v)
         if (vs[v] != nullptr && aligned16(vs[v])) tx += kChunk * 4;
       mbar_expect(&full[ist], tx);
-      if (p.tma_a) tma_load(st, &p.map_a, j0, arow, &full[ist]);
+      if (p.tma_a) tma_load(st, &p.map_a, acol, arow, &full[ist]);
       if (p.tma_x)
         for (int h = 0; h < (p.transform || kI8 ? 1 : halves); ++h)
           tma_load(st + a_bytes + h * kChunk * 128, &p.map_x, 64 * h, static_cast<int>(r0),
@@ -713,18 +724,19 @@ struct SlotLoop {
           bulk_load(vec + kChunk * v, vs[v] + r0, kChunk * 4, &full[ist]);
     }
     if (!p.tma_a) {
-      const size_t tile0 = (static_cast<size_t>(b) * p.s_span + is) * p.tile * p.tile + j0;
+      const size_t lda = p.wide ? static_cast<size_t>(p.s_span) * p.tile : p.tile;
+      const size_t tile0 = static_cast<size_t>(arow) * lda + acol;
       for (int idx = tid; idx < p.tile * kChunk; idx += kThreads) {
         const int r = idx >> 5, c = idx & 31;
         if (a_f32())
           reinterpret_cast<float*>(st)[a32_off(r, c)] =
-              static_cast<const float*>(p.a)[tile0 + r * p.tile + c];
+              static_cast<const float*>(p.a)[tile0 + r * lda + c];
         else if (kSrc && p.a_kind == kABf16)
           reinterpret_cast<__nv_bfloat16*>(st)[a16_off(r, c)] =
-              static_cast<const __nv_bfloat16*>(p.a)[tile0 + r * p.tile + c];
+              static_cast<const __nv_bfloat16*>(p.a)[tile0 + r * lda + c];
         else
           reinterpret_cast<int8_t*>(st)[a8_off(r, c)] =
-              static_cast<const int8_t*>(p.a)[tile0 + r * p.tile + c];
+              static_cast<const int8_t*>(p.a)[tile0 + r * lda + c];
       }
     }
     if (!p.tma_x && kI8) {  // the columns past the width are zeroed, as TMA does

@@ -4,8 +4,7 @@
 //
 // Replaces the TPU kernel `_fused_kernel` (sldm_gnn_tpu/ops/sage_fused.py:49,
 // launched by `banded_sage_fwd_pallas` :147, pallas_call :283), with its
-// `resid`, `ln` and `cmap` options; `ypre` (the halo overlap's
-// pre-activation output) is not ported. Slot s of block b reads source tile
+// `resid`, `ln`, `cmap` and `ypre` options. Slot s of block b reads source tile
 // bo[b] + s or, with `cmap`, the clamped window tile woff[b / k] + cmap[b *
 // s_span + s] (sage_fused.py:95-101). Roundings are the TPU kernel's: tiles,
 // x, agg and the weights in bf16, f32 sums, f32 LayerNorm statistics, the
@@ -13,7 +12,8 @@
 //
 // Bound at bench.py's shape (nb = 1572, tile 128, s_span 5, D = H = 128,
 // bf16): bytes, 128.8 MB of A + 51.5 MB of x + 51.5 MB of out (0.069 ms at
-// 3.35 TB/s), over 46 GFLOP (0.047 ms at the bf16 tensor-core rate). The
+// 3.35 TB/s), over 46 GFLOP (0.047 ms at the bf16 tensor-core rate);
+// `ypre` adds its m_b * k_grp * tile * H * 4 bytes written. The
 // first version ran both products on the f32 FMA units (a block product
 // staged element by element through loaders with an integer division and a
 // rounding each: >= 0.7 ms at 67 TFLOP/s, 2.83 ms measured), one block of
@@ -33,7 +33,12 @@
 //     flight during step 1), y = [agg | x_own] @ [Wl; Wr] by wgmma from
 //     shared memory, D padded to whole chunks with zero rows and columns, H
 //     to the wgmma width by columns that no statistic or store reads;
-//   the epilogue: bias in f32, LayerNorm in f32 (a row's values sit on the
+//   the epilogue: bias in f32; with `ypre` (the halo overlap's handshake,
+//     sage_fused.py:124-129) each row of a group g = b / k_grp with a
+//     boundary slot rg_b[g] > 0 stored as it stands, in f32, into y_pre_c
+//     [m_b, k_grp * tile, H] at slot rg_b[g] (the TPU kernel's dummy slot 0
+//     collects the unmapped groups' rows; here they write nothing, so no two
+//     blocks race on it); LayerNorm in f32 (a row's values sit on the
 //     four threads of a quad: mean, then the centred variance, by quad
 //     shuffles; xhat and rstd stored for the backward), the activation, and
 //     the rows out through shared memory (the agg and x_own tiles, no longer
@@ -61,6 +66,8 @@ struct FwdArgs {
   void* out;    // [nb * tile, H] at x's dtype
   void* xhat;   // [nb * tile, H] at x's dtype, with gamma
   float* rstd;  // [nb * tile], with gamma
+  float* ypre;       // [m_b, k_grp * tile, H] f32 or NULL
+  const int* rg_b;   // [nb / k_grp] boundary slot of each group, with ypre
 };
 
 constexpr int kFwdStages = 3;
@@ -217,6 +224,28 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
           s[h2] += c < H ? acc[nt][2 * h2 + e] : 0.0f;
         }
       }
+    if (f.ypre != nullptr) {  // y before LN and the activation, f32
+      const int slot = f.rg_b[b / f.k_grp];
+      if (slot > 0) {
+        float* yp = f.ypre + (static_cast<size_t>(slot) * f.k_grp + b % f.k_grp) * tile * H;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int rr = rw + 8 * h2;
+          if (rr >= tile) continue;
+#pragma unroll
+          for (int nt = 0; nt < 16; ++nt) {
+            const int c = nt * 8 + 2 * t;
+            float* at = yp + static_cast<size_t>(rr) * H + c;
+            if (c + 1 < H && H % 2 == 0) {
+              *reinterpret_cast<float2*>(at) = make_float2(acc[nt][2 * h2], acc[nt][2 * h2 + 1]);
+            } else {
+              if (c < H) at[0] = acc[nt][2 * h2];
+              if (c + 1 < H) at[1] = acc[nt][2 * h2 + 1];
+            }
+          }
+        }
+      }
+    }
     __syncthreads();  // both warpgroups' products have read agg_s and own_s
     if (f.gamma != nullptr) {
       float q[2] = {0.0f, 0.0f}, rsd[2];
@@ -281,18 +310,21 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
 // [nb*tile, D] bf16 or f32; wl, wr [D, H] bf16; bias, gamma, beta [H] f32
 // or NULL (gamma: LayerNorm on, and xhat [nb*tile, H] at x's dtype and rstd
 // [nb*tile] f32 are written); r_c [m, k_grp*tile, D] and rg [nb/k_grp]
-// int32 or NULL; out [nb*tile, H] at x's dtype.
+// int32 or NULL; out [nb*tile, H] at x's dtype; ypre [m_b, k_grp*tile, H]
+// f32 and rg_b [nb/k_grp] int32, or NULL.
 extern "C" int sage_fwd_launch(const void* a, int a_f32, const void* bo, const void* cmap,
                                const void* woff, const void* rs, int nb,
                                int s_span, int tile, int k_grp, const void* x, int x_bf16, int D,
                                int H, const void* wl, const void* wr, const void* bias,
                                const void* gamma, const void* beta, float eps, int has_act,
                                float slope, const void* r_c, int r_bf16, const void* rg,
-                               void* out, void* xhat, void* rstd, void* stream) {
+                               void* out, void* xhat, void* rstd, void* ypre, const void* rg_b,
+                               void* stream) {
   if (!banded_shape_ok(nb, s_span, tile, D) || H <= 0 || H > kTileMax || k_grp <= 0 ||
       nb % k_grp != 0 || (gamma != nullptr && (beta == nullptr || xhat == nullptr ||
                                                rstd == nullptr)) ||
-      (rg != nullptr && r_c == nullptr) || !cmap_ok(cmap, woff, s_span, k_grp, nb))
+      (rg != nullptr && r_c == nullptr) || (ypre != nullptr && rg_b == nullptr) ||
+      !cmap_ok(cmap, woff, s_span, k_grp, nb))
     return SLDM_ERR_SHAPE;
   SlotArgs p{};
   p.a = a;
@@ -337,6 +369,8 @@ extern "C" int sage_fwd_launch(const void* a, int a_f32, const void* bo, const v
   f.out = out;
   f.xhat = xhat;
   f.rstd = static_cast<float*>(rstd);
+  f.ypre = static_cast<float*>(ypre);
+  f.rg_b = static_cast<const int*>(rg_b);
   const size_t smem = fwd_smem_bytes(p);
   int code = smem_opt_in(sage_fwd_kernel, smem);
   if (code != 0) return code;

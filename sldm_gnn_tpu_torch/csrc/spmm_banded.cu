@@ -10,6 +10,13 @@
 // 423). Numerics of the TPU kernel: the int8 counts (exact in bf16 up to
 // 127) or f32 weights and cs * x are rounded to bf16, products summed in
 // f32, the row scale applied in f32, the result stored at x's dtype.
+// The `wide` layout (the TPU kernel's `wide` branch, spmm_banded.py:404-415:
+// one [T, S*T] @ [S*T, D] product a block over widen_banded's a [nb, T,
+// S*T]) is the same function; here its slot s is read in place as columns
+// s*T .. s*T+T-1 of the block's rows (a 2-D tensor map over [nb*T, S*T] with
+// [T, 32] boxes, or a row stride of S*T in the element path), through the
+// same chunks in the same order, so a wide layout gives the narrow layout's
+// bits. Its bytes, and so its bound, are the narrow layout's.
 //
 // Bound at bench.py's shape (nb = 1572 blocks of 128 rows, s_span = 5,
 // D = 128, bf16 x): bytes, 128.8 MB of A + 51.5 MB of x + 51.5 MB of out
@@ -29,19 +36,22 @@
 // f32, and out in 16-byte rows.
 #include "slot_spmm.cuh"
 
-// a [nb, s_span, tile, tile] int8 (or f32 with a_f32), bo [nb] int32;
+// a [nb, s_span, tile, tile] int8 (or f32 with a_f32), or with `wide` [nb,
+// tile, s_span * tile]; bo [nb] int32;
 // cmap [nb * s_span] and woff [nb / k] int32, or NULL (contiguous slots);
 // x and out [nb * tile, D] bf16 (x_bf16) or f32, cs/rs [nb * tile] f32 or
 // NULL.
-extern "C" int spmm_banded_launch(const void* a, int a_f32, const void* bo, const void* cmap,
-                                  const void* woff, int k, int nb, int s_span, int tile,
-                                  const void* x, int x_bf16, int D, const void* cs,
+extern "C" int spmm_banded_launch(const void* a, int a_f32, int wide, const void* bo,
+                                  const void* cmap, const void* woff, int k, int nb, int s_span,
+                                  int tile, const void* x, int x_bf16, int D, const void* cs,
                                   const void* rs, void* out, void* stream) {
-  if (!banded_shape_ok(nb, s_span, tile, D) || !cmap_ok(cmap, woff, s_span, k, nb))
+  if (!banded_shape_ok(nb, s_span, tile, D) || !cmap_ok(cmap, woff, s_span, k, nb) ||
+      (wide && cmap != nullptr))  // cmap slots are not contiguous (spmm_banded.py:452)
     return SLDM_ERR_SHAPE;
   SlotArgs p{};
   p.a = a;
   p.a_kind = a_f32 ? kAF32 : kAInt8;
+  p.wide = wide != 0;
   p.amode = kScaleNone;
   p.bo = static_cast<const int*>(bo);
   p.cmap = static_cast<const int*>(cmap);

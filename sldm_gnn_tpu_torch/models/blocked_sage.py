@@ -30,9 +30,10 @@ the kernels on CUDA tensors and their plain versions on CPU tensors.
 
 The banded layouts include ``cmap`` ones (:mod:`..ops.spmm_cmap`, the
 low-degree tier: an arbitrary set of source tiles a block), whose
-``BandedResidualLayout`` runs every mode; ``int8_features`` keeps to the
-contiguous band, as the JAX package does. Not ported
-(``NotImplementedError``): ``wide`` banded layouts.
+``BandedResidualLayout`` runs every mode, and ``wide`` ones
+(``widen_banded``), which ``fused`` and ``fused_ln`` send to the unfused
+path, as the JAX model does; ``int8_features`` keeps to the contiguous
+narrow band, as the JAX package does.
 """
 
 from __future__ import annotations

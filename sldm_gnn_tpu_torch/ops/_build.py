@@ -159,7 +159,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         getattr(lib, name).restype = i
     f = ctypes.c_float
     lib.spmm_banded_launch.argtypes = [
-        p, i, p, p, p, i,         # a, a_f32, bo, cmap, woff, k
+        p, i, i, p, p, p, i,      # a, a_f32, wide, bo, cmap, woff, k
         i, i, i,                  # nb, s_span, tile
         p, i, i, p, p, p, p,      # x, x_bf16, D, cs, rs, out, stream
     ]
@@ -168,7 +168,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         p, i, i, i, i,            # rs, nb, s_span, tile, k
         p, i, i, i, p, p,         # x, x_bf16, D, H, wl, wr
         p, p, p, f, i, f,         # bias, gamma, beta, eps, has_act, slope
-        p, i, p, p, p, p, p,      # r_c, r_bf16, rg, out, xhat, rstd, stream
+        p, i, p, p, p, p,         # r_c, r_bf16, rg, out, xhat, rstd
+        p, p, p,                  # ypre, rg_b, stream
     ]
     lib.sage_dw_parts.argtypes = [i, pi]  # rows, -> parts
     lib.sage_bwd_launch.argtypes = [

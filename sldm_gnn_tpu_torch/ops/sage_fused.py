@@ -23,9 +23,14 @@ LN) folds into the tiles' columns, as the TPU kernels fold it
 (``sage_fused.py:407-409, 763-767``).
 
 ``cmap`` layouts (:mod:`.spmm_cmap`) run through the same kernels and
-plain versions, their slots reading ``woff[b // k] + cmap[b, s]``. Left
-out: the ``ypre`` output (halo overlap) and ``wide`` layouts
-(``NotImplementedError``).
+plain versions, their slots reading ``woff[b // k] + cmap[b, s]``. The
+forward's ``ypre=(rg_b, m_b)`` option adds the halo overlap's compact
+output ``y_pre_c [m_b, K*T, H]`` f32 (:mod:`..parallel.halo_fused`): the
+pre-LN, pre-activation ``y`` of each group ``g`` with ``rg_b[g] > 0``, at
+slot ``rg_b[g]``; the other slots stay zero. The kernels take the narrow
+layout only, as the TPU kernels do; a ``wide`` reverse layout takes the
+backward through :func:`~.spmm_banded.spmm_banded` and dense products, as
+in the JAX package (``sage_fused.py:622, 1007``).
 """
 
 from __future__ import annotations
@@ -105,11 +110,24 @@ def _slot_scale(cs: torch.Tensor, blocks: BandedBlocks) -> torch.Tensor:
     return gather_slots(cs, blocks)[..., 0][:, :, None, :]
 
 
+def ypre_slots(y: torch.Tensor, rg_b: torch.Tensor, m_b: int, kt: int) -> torch.Tensor:
+    """``y [N, H]`` -> ``y_pre_c [m_b, kt, H]`` f32: the rows of each group
+    ``g`` (``kt`` rows) with ``rg_b[g] > 0`` at slot ``rg_b[g]``, zeros
+    elsewhere."""
+    h = y.shape[1]
+    out = torch.zeros((m_b, kt, h), dtype=torch.float32, device=y.device)
+    live = rg_b > 0
+    out[rg_b[live].long()] = y.float().reshape(-1, kt, h)[live]
+    return out
+
+
 def banded_sage_fwd_plain(x, wl, wr, bias, blocks: BandedBlocks, *,
                           negative_slope: float | None = None, resid=None, ln=None,
-                          eps: float = 1e-5):
+                          eps: float = 1e-5, ypre=None):
     """Plain PyTorch version of ``csrc/sage_fused_fwd.cu``. Returns ``out``
-    at x's dtype, or with ``ln=(gamma, beta)`` ``(out, xhat, rstd [N, 1])``."""
+    at x's dtype, or with ``ln=(gamma, beta)`` ``(out, xhat, rstd [N, 1])``;
+    ``ypre=(rg_b, m_b)`` appends ``y_pre_c`` (:func:`ypre_slots` of the
+    post-bias ``y``)."""
     require_narrow(blocks)
     if blocks.col_scale is not None:
         raise ValueError("pass the forward layout (row_scale form)")
@@ -121,10 +139,12 @@ def banded_sage_fwd_plain(x, wl, wr, bias, blocks: BandedBlocks, *,
     y = bf16r(agg) @ bf16r(wl.float()) + bf16r(x.float()) @ bf16r(wr.float())
     if bias is not None:
         y = y + bias.float()
+    extra = () if ypre is None else (ypre_slots(y, ypre[0], ypre[1], blocks.k * blocks.tile),)
     if ln is None:
-        return _act(y, negative_slope).to(x.dtype)
+        out = _act(y, negative_slope).to(x.dtype)
+        return (out, *extra) if extra else out
     z, xhat, rstd = _ln_fwd_xla(y, *ln, eps)
-    return _act(z, negative_slope).to(x.dtype), xhat.to(x.dtype), rstd
+    return (_act(z, negative_slope).to(x.dtype), xhat.to(x.dtype), rstd, *extra)
 
 
 def banded_sage_bwd_plain(gq, wl, wr, blocks_rev: BandedBlocks, *, x=None, resid=None):
@@ -216,15 +236,18 @@ def _ptr(t):
 
 def banded_sage_fwd(x, wl, wr, bias, blocks: BandedBlocks, *,
                     negative_slope: float | None = None, resid=None, ln=None,
-                    eps: float = 1e-5):
+                    eps: float = 1e-5, ypre=None):
     """:func:`banded_sage_fwd_plain`'s function: the ``csrc/sage_fused_fwd.cu``
     kernel for CUDA tensors, the plain version for CPU tensors.
     ``negative_slope``: None = no activation, 0.0 = ReLU, else LeakyReLU;
     ``resid=(r_c, rg)``: the compact residual aggregate
-    (:mod:`.banded_residual`), added to the rows of groups with ``rg > 0``."""
+    (:mod:`.banded_residual`), added to the rows of groups with ``rg > 0``;
+    ``ypre=(rg_b [NB / K] int32, m_b)``: also return ``y_pre_c [m_b, K*T,
+    H]`` f32, the post-bias ``y`` of the groups with ``rg_b > 0`` at their
+    slots (the kernel writes those slots, the wrapper zeroes the rest)."""
     if x.device.type == "cpu":
         return banded_sage_fwd_plain(x, wl, wr, bias, blocks, negative_slope=negative_slope,
-                                     resid=resid, ln=ln, eps=eps)
+                                     resid=resid, ln=ln, eps=eps, ypre=ypre)
     check_cuda_layout("banded_sage_fwd", x, blocks)
     if blocks.col_scale is not None:
         raise ValueError("banded_sage_fwd: pass the forward layout (row_scale form)")
@@ -242,6 +265,14 @@ def banded_sage_fwd(x, wl, wr, bias, blocks: BandedBlocks, *,
     out = torch.empty((n, h), device=dev, dtype=x.dtype)
     xhat = torch.empty((n, h), device=dev, dtype=x.dtype) if ln is not None else None
     rstd = torch.empty((n, 1), device=dev, dtype=torch.float32) if ln is not None else None
+    y_pre = rg_b = None
+    if ypre is not None:
+        rg_b, m_b = ypre
+        if rg_b.numel() != blocks.num_dst_blocks // blocks.k or m_b < 1:
+            raise ValueError("banded_sage_fwd: ypre's group map must have one entry per "
+                             "group of k blocks, and m_b >= 1")
+        rg_b = rg_b.to(dev, torch.int32).contiguous()
+        y_pre = torch.zeros((m_b, blocks.k * blocks.tile, h), device=dev, dtype=torch.float32)
     from . import _build
 
     lib = _build.load()
@@ -253,11 +284,13 @@ def banded_sage_fwd(x, wl, wr, bias, blocks: BandedBlocks, *,
             wl_b.data_ptr(), wr_b.data_ptr(), _ptr(bias_f), _ptr(gamma_f), _ptr(beta_f),
             float(eps), int(negative_slope is not None),
             float(negative_slope or 0.0), _ptr(r_c), r_bf16, _ptr(rg),
-            out.data_ptr(), _ptr(xhat), _ptr(rstd),
+            out.data_ptr(), _ptr(xhat), _ptr(rstd), _ptr(y_pre), _ptr(rg_b),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, code, f"banded_sage_fwd kernel (nb={blocks.num_dst_blocks}, D={d}, H={h})")
     banded_sage_fwd.launches += 1
-    return out if ln is None else (out, xhat, rstd)
+    outs = (out,) if ln is None else (out, xhat, rstd)
+    outs += () if y_pre is None else (y_pre,)
+    return outs if len(outs) > 1 else out
 
 
 banded_sage_fwd.launches = 0
@@ -402,31 +435,53 @@ def _expand_compact(out: torch.Tensor, r: torch.Tensor, rg: torch.Tensor) -> tor
     return out + r[rg.long()].reshape(n_pad, d).to(out.dtype)
 
 
-def _fused_fwd_impl(x, wl, wr, bias, blocks, use_pallas, slope, resid=None, ln=None, eps=1e-5):
-    """The layer's forward; with ``ln`` it returns ``(out, xhat, rstd)``.
-    ``resid``: a ``BandedResidualLayout`` whose compact residual is added
-    to the aggregate (``blocks`` is then its ``banded_fwd``)."""
-    r = None if resid is None else resid.compact_fwd(x)
+def _fused_fwd_impl(x, wl, wr, bias, blocks, use_pallas, slope, resid=None, ln=None, eps=1e-5,
+                    ypre=None):
+    """The layer's forward; with ``ln`` it returns ``(out, xhat, rstd)``,
+    and with ``ypre=(rg_b, m_b)`` ``y_pre_c`` after those. ``resid=(r, rg)``:
+    the compact residual ``r [m, K*T, D]`` f32 added to the aggregate of the
+    groups with ``rg > 0`` (a ``BandedResidualLayout``'s, or the halo
+    layers' boundary and interior overflow)."""
     if use_pallas:
-        rs = None if r is None else (r.to(x.dtype), resid.rg_fwd)
+        rs = None if resid is None else (resid[0].to(x.dtype), resid[1])
         return banded_sage_fwd(x, wl, wr, bias, blocks, negative_slope=slope, resid=rs, ln=ln,
-                               eps=eps)
+                               eps=eps, ypre=ypre)
     agg = spmm_banded_xla(x, blocks)
-    if r is not None:
-        agg = _expand_compact(agg, r, resid.rg_fwd)
+    if resid is not None:
+        agg = _expand_compact(agg, *resid)
     y = _mm(agg, wl) + _mm(x, wr)
     if bias is not None:
         y = y + bias
+    extra = () if ypre is None else (ypre_slots(y, ypre[0], ypre[1], blocks.k * blocks.tile),)
     if ln is None:
-        return _act(y, slope).to(x.dtype)
+        out = _act(y, slope).to(x.dtype)
+        return (out, *extra) if extra else out
     z, xhat, rstd = _ln_fwd_xla(y, *ln, eps)
-    return _act(z, slope).to(x.dtype), xhat.to(x.dtype), rstd
+    return (_act(z, slope).to(x.dtype), xhat.to(x.dtype), rstd, *extra)
+
+
+def _layout_resid(x, resid):
+    """A ``BandedResidualLayout``'s compact forward residual and its group
+    map, or None."""
+    return None if resid is None else (resid.compact_fwd(x), resid.rg_fwd)
 
 
 def _xla_t(gq, blocks_rev, resid):
     """The f32 twin's ``t = A^T gq``, plus the compact reverse residual."""
     t = spmm_banded_xla(gq, blocks_rev)
     return t if resid is None else _expand_compact(t, resid.compact_rev(gq), resid.rg_rev)
+
+
+def _unfused_t(gq, blocks_rev, use_pallas, resid):
+    """``t = A^T gq`` where the fused reverse kernel does not run (a
+    ``wide`` reverse layout, or the twin): the SpMM kernel without a
+    residual (JAX ``sage_fused.py:630-633``), else the twin (the residual
+    layer's, ``banded_residual.py:420-421``)."""
+    if use_pallas and resid is None:
+        from .spmm_banded import spmm_banded
+
+        return spmm_banded(gq.contiguous(), blocks_rev)
+    return _xla_t(gq, blocks_rev, resid)
 
 
 def xla_grads(gq, x, wl, wr, t):
@@ -450,7 +505,8 @@ def mask_act(g, y, slope):
 class _BandedSageFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wl, wr, bias, blocks_fwd, blocks_rev, use_pallas, slope, resid):
-        y = _fused_fwd_impl(x, wl, wr, bias, blocks_fwd, use_pallas, slope, resid)
+        y = _fused_fwd_impl(x, wl, wr, bias, blocks_fwd, use_pallas, slope,
+                            _layout_resid(x, resid))
         ctx.save_for_backward(x, wl, wr, y if slope is not None else None)
         ctx.blocks_rev, ctx.use_pallas, ctx.slope, ctx.resid = blocks_rev, use_pallas, slope, resid
         ctx.bias_dtype = None if bias is None else bias.dtype
@@ -462,12 +518,13 @@ class _BandedSageFn(torch.autograd.Function):
         resid = ctx.resid
         g = mask_act(g, y, ctx.slope)
         gq = g.to(x.dtype).contiguous()
-        if ctx.use_pallas:
+        if ctx.use_pallas and not ctx.blocks_rev.wide:
             rs = None if resid is None else (resid.compact_rev(gq).to(gq.dtype), resid.rg_rev)
             dx, dwl, dwr = banded_sage_bwd(gq, wl, wr, ctx.blocks_rev, x=x, resid=rs)
             dx, dwl, dwr = dx.to(x.dtype), dwl.to(wl.dtype), dwr.to(wr.dtype)
         else:
-            dx, dwl, dwr = xla_grads(gq, x, wl, wr, _xla_t(gq, ctx.blocks_rev, resid))
+            dx, dwl, dwr = xla_grads(gq, x, wl, wr,
+                                     _unfused_t(gq, ctx.blocks_rev, ctx.use_pallas, resid))
         db = None if ctx.bias_dtype is None else g.sum(0).to(ctx.bias_dtype)
         return dx, dwl, dwr, db, None, None, None, None, None
 
@@ -493,7 +550,8 @@ class _BandedSageLnFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wl, wr, bias, gamma, beta, blocks_fwd, blocks_rev, use_pallas, slope,
                 eps, resid):
-        out, xhat, rstd = _fused_fwd_impl(x, wl, wr, bias, blocks_fwd, use_pallas, slope, resid,
+        out, xhat, rstd = _fused_fwd_impl(x, wl, wr, bias, blocks_fwd, use_pallas, slope,
+                                          _layout_resid(x, resid),
                                           ln=(gamma, beta), eps=eps)
         ctx.save_for_backward(x, wl, wr, gamma, beta, xhat, rstd)
         ctx.blocks_rev, ctx.use_pallas, ctx.slope, ctx.resid = blocks_rev, use_pallas, slope, resid
@@ -504,7 +562,7 @@ class _BandedSageLnFn(torch.autograd.Function):
     def backward(ctx, g):
         x, wl, wr, gamma, beta, xhat, rstd = ctx.saved_tensors
         resid = ctx.resid
-        if ctx.use_pallas:
+        if ctx.use_pallas and not ctx.blocks_rev.wide:
             rs = None
             if resid is not None:
                 # dy of the few residual rows only, on the host side of the kernel
@@ -518,7 +576,8 @@ class _BandedSageLnFn(torch.autograd.Function):
         else:
             dy, dgamma, dbeta = _ln_bwd_prologue(g, xhat, rstd, gamma, beta, ctx.slope)
             gq = dy.to(x.dtype)
-            dx, dwl, dwr = xla_grads(gq, x, wl, wr, _xla_t(gq, ctx.blocks_rev, resid))
+            dx, dwl, dwr = xla_grads(gq, x, wl, wr,
+                                     _unfused_t(gq, ctx.blocks_rev, ctx.use_pallas, resid))
             db = None if ctx.bias_dtype is None else dy.sum(0).to(ctx.bias_dtype)
             grads = (dx, dwl, dwr, db, dgamma, dbeta)
         return (*grads, None, None, None, None, None, None)

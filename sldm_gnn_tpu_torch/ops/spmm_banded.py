@@ -15,13 +15,22 @@ layout (:mod:`.spmm_cmap`) replaces the contiguous band by an arbitrary
 set of source tiles: slot ``s`` of block ``b`` reads tile ``woff[b // k] +
 cmap[b * s_span + s]``, in the kernels and in their plain versions.
 
+A ``wide`` layout (:func:`widen_banded`) folds the slot axis into the
+tile's columns, ``a [nb, T, S_SPAN*T]``: the TPU kernel's one ``[T,
+S*T] @ [S*T, D]`` product a block. It is the same function; the twin,
+the plain version and the CUDA kernel (which reads the wide tiles in
+place) take it in both directions, and the kernel and the plain version
+give the narrow layout's bits. As in the JAX package, the int8 kernel
+and the fused kernels (:mod:`.sage_fused`) take the narrow layout only,
+and ``cmap`` layouts stay narrow.
+
 The int8 inference kernel (``csrc/spmm_banded_int8.cu``) aggregates
 per-tensor int8 features over the int8 count tiles exactly in integers
 (contiguous band only: the JAX package asserts no ``cmap``).
 
-Left out (each raises ``NotImplementedError``): the int4 view
-(``counts_to_int4``), ``widen_banded`` (``wide``), ``chunk_blocks`` and
-the native OpenMP count fill; the builders take the numpy path.
+Left out: the int4 view (``counts_to_int4``), which only the
+multi-chip streamed planner writes, ``chunk_blocks`` and the native
+OpenMP count fill; the layouts are built by the numpy path.
 """
 
 from __future__ import annotations
@@ -41,7 +50,8 @@ BF16 = torch.bfloat16
 class BandedBlocks:
     """Banded adjacency tiles and window metadata (tensors) plus static ints.
 
-    a     [NB, S_SPAN, T, T] int8 counts (factored mean) or float weights
+    a     [NB, S_SPAN, T, T] int8 counts (factored mean) or float weights;
+          with ``wide`` [NB, T, S_SPAN*T], slot s at columns s*T .. s*T+T-1
     bo    [NB] int32    slot base: slot s of block b is source block bo[b]+s
     woff  [NB/K] int32  x-window base (in tiles) of each group of K blocks
     off   [NB] int32    bo[b] - woff[b // K]
@@ -50,8 +60,6 @@ class BandedBlocks:
     cmap  [NB * S_SPAN] int32 or None: window-relative source tile of every
           slot (:mod:`.spmm_cmap` builds it); slot s of block b then reads
           tile woff[b // K] + cmap[b * S_SPAN + s] instead of bo[b] + s.
-    ``wide`` mirrors the JAX field; nothing here builds it and every
-    consumer raises ``NotImplementedError`` on it.
     """
 
     a: torch.Tensor
@@ -83,9 +91,31 @@ class BandedBlocks:
 
 
 def require_narrow(blocks: BandedBlocks) -> None:
-    """Raise ``NotImplementedError`` on the layouts the port leaves out."""
+    """The JAX package's assert of the kernels that take the per-slot
+    layout only (the fused kernels, ``sage_fused.py:192, 473, 830``)."""
     if blocks.wide:
-        raise NotImplementedError("wide banded layouts (widen_banded) are not ported")
+        raise ValueError("the fused kernels use the per-slot (narrow) layout, not wide")
+
+
+def widen_banded(blocks: BandedBlocks) -> BandedBlocks:
+    """``a [NB, S, T, T]`` -> ``[NB, T, S*T]``: the slot axis folded into
+    the tile's columns (the JAX function, ``spmm_banded.py:97-112``; cmap
+    layouts stay narrow). A wide layout is returned as it is."""
+    if blocks.wide:
+        return blocks
+    if blocks.cmap is not None:
+        raise ValueError("cmap slots are non-contiguous; keep narrow")
+    nb, s, t, _ = blocks.a.shape
+    a = blocks.a.permute(0, 2, 1, 3).contiguous().reshape(nb, t, s * t)
+    return dataclasses.replace(blocks, a=a, wide=True)
+
+
+def slot_tiles(blocks: BandedBlocks) -> torch.Tensor:
+    """The tiles as ``[NB, S_SPAN, T, T]`` (a wide layout's, copied back)."""
+    if not blocks.wide:
+        return blocks.a
+    nb, t, s = blocks.num_dst_blocks, blocks.tile, blocks.s_span
+    return blocks.a.reshape(nb, t, s, t).permute(0, 2, 1, 3).contiguous()
 
 
 def int4_count_safe(blocks: BandedBlocks) -> bool:
@@ -209,22 +239,22 @@ def prepare_banded_mean_aggregate(
 ) -> tuple[BandedBlocks, BandedBlocks, int]:
     """Forward and reverse banded layouts for mean aggregation: int8 count
     tiles with the 1/deg row scale (forward) and column scale (reverse),
-    or for a float ``dtype`` the weights folded into the tiles."""
-    if wide:
-        raise NotImplementedError("wide banded layouts (widen_banded) are not ported")
+    or for a float ``dtype`` the weights folded into the tiles. ``wide``
+    folds each layout's slots into columns (:func:`widen_banded`)."""
+    maybe_widen = widen_banded if wide else (lambda b: b)
     if np.dtype(dtype) == np.int8:
         fwd = build_banded_counts(src, dst, num_nodes, tile=tile, k=k, max_span=max_span)
         rev = build_banded_counts(dst, src, num_nodes, tile=tile, k=k, max_span=max_span)
         n_pad = fwd.num_dst_blocks * tile
         scale = _mean_scale(dst, n_pad)
-        return (dataclasses.replace(fwd, row_scale=scale),
-                dataclasses.replace(rev, col_scale=scale), n_pad)
+        return (maybe_widen(dataclasses.replace(fwd, row_scale=scale)),
+                maybe_widen(dataclasses.replace(rev, col_scale=scale)), n_pad)
     w = mean_weights(dst, num_nodes)
     fwd = build_banded_blocks(src, dst, num_nodes, weight=w, tile=tile, k=k,
                               dtype=dtype, max_span=max_span)
     rev = build_banded_blocks(dst, src, num_nodes, weight=w, tile=tile, k=k,
                               dtype=dtype, max_span=max_span)
-    return fwd, rev, fwd.num_dst_blocks * tile
+    return maybe_widen(fwd), maybe_widen(rev), fwd.num_dst_blocks * tile
 
 
 # ------------------------------------------------------------ shared helpers
@@ -277,8 +307,10 @@ def slot_aggregate(a: torch.Tensor, rows: torch.Tensor, blocks: BandedBlocks) ->
 
 
 def check_cuda_layout(name: str, v: torch.Tensor, blocks: BandedBlocks) -> None:
-    """What every banded kernel wrapper checks before a launch."""
-    require_narrow(blocks)
+    """What every banded kernel wrapper checks before a launch (the wide
+    layout only ``spmm_banded`` takes)."""
+    if name != "spmm_banded":
+        require_narrow(blocks)
     nb, tile = blocks.num_dst_blocks, blocks.tile
     if v.device.type != "cuda":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, got {v.device}")
@@ -314,11 +346,10 @@ def scale_ptr(s: torch.Tensor | None, n: int, dev) -> int | None:
 def spmm_banded_xla(x: torch.Tensor, blocks: BandedBlocks) -> torch.Tensor:
     """The JAX ``spmm_banded_xla`` (:590) without ``chunk_blocks``: the
     same aggregation at x's dtype, with no bf16 rounding (``cmap`` slots
-    included)."""
-    require_narrow(blocks)
+    and wide layouts included)."""
     if blocks.col_scale is not None:
         x = (x.float() * blocks.col_scale).to(x.dtype)
-    out = slot_aggregate(blocks.a.to(x.dtype), x, blocks)
+    out = slot_aggregate(slot_tiles(blocks).to(x.dtype), x, blocks)
     if blocks.row_scale is not None:
         out = (out.float() * blocks.row_scale).to(x.dtype)
     return out
@@ -330,12 +361,13 @@ def spmm_banded_xla(x: torch.Tensor, blocks: BandedBlocks) -> torch.Tensor:
 def spmm_banded_plain(x: torch.Tensor, blocks: BandedBlocks) -> torch.Tensor:
     """Plain PyTorch version of ``csrc/spmm_banded.cu``, with the TPU
     kernel's roundings: ``cs * x`` and the tiles rounded to bf16, products
-    summed in f32, the row scale applied in f32, the result at x's dtype."""
-    require_narrow(blocks)
+    summed in f32, the row scale applied in f32, the result at x's dtype. A
+    wide layout's tiles are copied back to slots: the same sums, the same
+    bits."""
     xs = x.float()
     if blocks.col_scale is not None:
         xs = xs * blocks.col_scale
-    out = slot_aggregate(bf16r(blocks.a.float()), bf16r(xs), blocks)
+    out = slot_aggregate(bf16r(slot_tiles(blocks).float()), bf16r(xs), blocks)
     if blocks.row_scale is not None:
         out = out * blocks.row_scale
     return out.to(x.dtype)
@@ -355,7 +387,7 @@ def spmm_banded(x: torch.Tensor, blocks: BandedBlocks) -> torch.Tensor:
     lib = _build.load()
     with torch.cuda.device(x.device):
         code = lib.spmm_banded_launch(
-            blocks.a.data_ptr(), int(blocks.a.dtype == torch.float32),
+            blocks.a.data_ptr(), int(blocks.a.dtype == torch.float32), int(blocks.wide),
             blocks.bo.to(torch.int32).contiguous().data_ptr(), *cmap_args(blocks), blocks.k,
             nb, blocks.s_span, tile,
             x.data_ptr(), int(x.dtype == BF16), d,

@@ -516,23 +516,26 @@ def test_cpu_wrappers_run_plain_versions_without_counting(rng):
 
 
 def test_layouts_left_out_raise(rng):
-    """``wide`` layouts stay unported and raise. ``cmap`` slots are ported
-    (tests/test_torch_cmap.py): a cmap that names each block's own band
-    (``off[b] + s``) reads the contiguous layout's tiles, bit for bit."""
+    """``wide`` layouts (``widen_banded``) run the aggregation, bit-equal to
+    the narrow layout's; the fused kernels refuse them (ValueError) and
+    cmap layouts stay narrow, as the JAX package asserts
+    (``sage_fused.py:192``, ``spmm_banded.py:101``). ``cmap`` slots are
+    ported (tests/test_torch_cmap.py): a cmap that names each block's own
+    band (``off[b] + s``) reads the contiguous layout's tiles, bit for
+    bit."""
     import dataclasses
 
     fwd, rev, _, _, a = _setup(rng)
     x = _t(a["x"])
-    wide = dataclasses.replace(fwd, wide=True)
+    wide = tsb.widen_banded(fwd)
     for fn in (tsb.spmm_banded_xla, tsb.spmm_banded_plain, tsb.spmm_banded):
-        with pytest.raises(NotImplementedError):
-            fn(x, wide)
-    with pytest.raises(NotImplementedError):
+        assert torch.equal(fn(x, wide), fn(x, fwd))
+    with pytest.raises(ValueError):
         tsf.banded_sage_fwd(x, _t(a["wl"]), _t(a["wr"]), None, wide)
-    with pytest.raises(NotImplementedError):
-        tsb.prepare_banded_mean_aggregate(np.array([0]), np.array([1]), 10, tile=32, wide=True)
     band = (fwd.off.long()[:, None] + torch.arange(fwd.s_span)[None, :]).to(torch.int32)
     cmap = dataclasses.replace(fwd, cmap=band.reshape(-1).contiguous())
+    with pytest.raises(ValueError):
+        tsb.widen_banded(cmap)
     for fn in (tsb.spmm_banded_xla, tsb.spmm_banded_plain, tsb.spmm_banded):
         assert torch.equal(fn(x, cmap), fn(x, fwd))
     assert torch.equal(tsf.banded_sage_fwd(x, _t(a["wl"]), _t(a["wr"]), None, cmap),

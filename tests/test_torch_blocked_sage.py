@@ -231,9 +231,14 @@ def test_classifier_trains_through_the_kernel_path(rng, layout):
 
 
 def test_left_out_options_raise(rng):
-    """Only ``wide`` banded layouts stay unported. ``cmap`` slots run every
+    """No option is left out any more. ``wide`` banded layouts run every
+    mode, the fused ones taking the unfused path as in the JAX package
+    (tests/test_torch_banded_wide.py holds them against it); unfused, their
+    logits are the narrow layouts', bit for bit. ``cmap`` slots run every
     mode (tests/test_torch_cmap.py): cmaps that name each block's own band
     give the contiguous layouts' logits, bit for bit."""
+    from sldm_gnn_tpu_torch.ops.spmm_banded import widen_banded
+
     (tf, tr), _, n_pad, _, _ = _layouts(rng, "banded")
     x = torch.from_numpy(_data(n_pad)[0])
 
@@ -243,8 +248,11 @@ def test_left_out_options_raise(rng):
 
     for mode in ("unfused", "fused", "fused_ln"):
         model = BlockedSageClassifier(HIDDEN, CLASSES, in_features=D, **MODES[mode])
-        with pytest.raises(NotImplementedError):
-            model(x, dataclasses.replace(tf, wide=True), tr, n_pad)
+        with torch.no_grad():
+            got = model(x, widen_banded(tf), widen_banded(tr), n_pad)
+            assert torch.isfinite(got).all(), mode
+            if mode == "unfused":
+                assert torch.equal(got, model(x, tf, tr, n_pad))
         with torch.no_grad():
             assert torch.equal(model(x, as_cmap(tf), as_cmap(tr), n_pad),
                                model(x, tf, tr, n_pad)), mode

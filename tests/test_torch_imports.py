@@ -53,6 +53,12 @@ LAST_KERNELS_SLICE = ["sldm_gnn_tpu_torch/ops/spmm_mk.py", "sldm_gnn_tpu_torch/o
                       "sldm_gnn_tpu_torch/ops/gru_cuda.py"]
 
 
+PARALLEL_SLICE = ["sldm_gnn_tpu_torch/parallel/__init__.py",
+                  "sldm_gnn_tpu_torch/parallel/halo.py",
+                  "sldm_gnn_tpu_torch/parallel/halo_fused.py",
+                  "sldm_gnn_tpu_torch/parallel/halo_model.py"]
+
+
 def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "sldm_gnn_tpu_torch/ops/gru_cuda.py" in names
@@ -62,6 +68,7 @@ def test_port_files_exist():
     assert set(LAYOUT_SLICE) <= names  # and the one-hot, dense, hybrid and gather layouts
     assert set(INT8_SDDMM_SLICE) <= names  # and the int8 one-hot, SDDMM, reorder, layout files
     assert set(LAST_KERNELS_SLICE) <= names  # and the megakernel, cmap, attention, v1 scan
+    assert set(PARALLEL_SLICE) <= names  # and the halo planners and per-shard fused layers
 
 
 def test_port_modules_import_with_jax_unavailable():
