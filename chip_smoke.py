@@ -224,11 +224,11 @@ ONEHOT_CHUNK = 512
 ONEHOT_K = 2
 DENSE_K = 4
 HYBRID_MIN = 300
-#  one-hot and dense kernels vs their plain versions with f32 output: the
+#  the dense kernel vs its plain version with f32 output: the
 #  same products, f32 sums in another order; 1e-5 of max|out| (the CPU
 #  tests' bound against the Pallas interpret kernels). With bf16 output
-#  BANDED_REL. The gather and int8 kernels sum in the plain versions'
-#  order (or exactly): bit-equal.
+#  BANDED_REL. The one-hot, gather and int8 banded kernels sum in the plain
+#  versions' order (or exactly): bit-equal.
 AGG_F32_REL = 1e-5
 #  int8-feature logits vs the f32 path: the per-tensor quantization error,
 #  5e-2 of max|logit| (tests/test_blocked_sage.py:145)
@@ -1860,11 +1860,11 @@ def check_layout_kernels(mods: dict, lays: dict, pure, graph, gen, dev) -> list[
         for lay, what in ((of, "forward"), (orv, "reverse")):
             compare("spmm_onehot", f"{name} {what}",
                     lambda: tsp.spmm_onehot(x1, lay, k_per_step=ONEHOT_K),
-                    lambda: tsp.spmm_onehot_plain(x1, lay, k_per_step=ONEHOT_K), tol)
+                    lambda: tsp.spmm_onehot_plain(x1, lay, k_per_step=ONEHOT_K), None)
             if dt == torch.float32:
                 compare("spmm_onehot", f"f32 HIGHEST {what}",
                         lambda: tsp.spmm_onehot(x1, lay, precision="highest"),
-                        lambda: tsp.spmm_onehot_plain(x1, lay, precision="highest"), tol)
+                        lambda: tsp.spmm_onehot_plain(x1, lay, precision="highest"), None)
         for lay, what in ((df, "forward (row scale)"), (dr, "reverse (column scale)")):
             compare("spmm_dense", f"{name} int8 tiles {what}",
                     lambda: tsd.spmm_dense(x2, lay, step_blocks=DENSE_K),
@@ -1889,6 +1889,10 @@ def check_layout_kernels(mods: dict, lays: dict, pure, graph, gen, dev) -> list[
     x1, x2, x3 = xs["bf16"]
     csr = {n: mean_csr(*graph, n, dev) for n in {n1, n2, n3, n_int8}}
     live = int((of.weight != 0).sum())
+    plan_mb = sum(a.numel() * a.element_size() for a in tsp.onehot_plan(of, n1)) / 1e6
+    log(f"spmm_onehot plan (row_ptr, perm, src_row; structure only, kept on the layout): "
+        f"{plan_mb:.1f} MB, read beside the layout's {of.src_local.numel() * 12 / 1e6:.1f} MB "
+        f"(the bound counts the layout, x and out)")
     gf = gl.gather_fwd
     runs = [
         ("spmm_onehot", "sldm_gnn_tpu_torch/csrc/spmm_onehot.cu", "sldm_gnn_tpu/ops/spmm.py:202",
@@ -2682,7 +2686,8 @@ def check_gru_scan(mods: dict, gen, dev, smi: str) -> list[dict]:
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
     rows, H3 = n * FRAMES, 3 * h
     io = rows * H3 * 4 + rows * h * 4  # xproj and hs (or g)
-    fwd_bound = bound(io + (H3 * h + H3) * 4, 2.0 * rows * H3 * h, PEAK_F32_FLOP_S)
+    # the forward's h @ W_hh runs as 3xTF32: three TF32 products
+    fwd_bound = bound(io + (H3 * h + H3) * 4, 3 * 2.0 * rows * H3 * h, PEAK_TF32_FLOP_S)
     # the backward reads xproj, hs and g and writes dxproj (2 io); its three
     # products run as 3xTF32: three TF32 products each
     bwd_bound = bound(2 * io + (H3 * h + H3) * 8, 3 * 6.0 * rows * H3 * h,
@@ -2721,6 +2726,56 @@ SCAN_SWEEP_T = (1, 2, FRAMES)
 SCAN_SWEEP_H = (8, 20, 33, 64, 96, 100)
 SCAN_SWEEP_FN = ((65, 10, 33), (200, 10, 100))  # (N, T, H) through GruScanFn
 SCAN_BWD_H_32_ROWS = 112  # the widest H of the backward's 32-row tile (its header)
+
+
+# the v1 forward's sweep: N around its 16-row m-tiles, T of one, two, an
+# odd count and the flagship's frames, H not a multiple of 16 (the padded
+# gates), past 96 and the widest; the flagship's rows (blocks of several
+# m-tiles) at T 2 for every H and at T 100 for 96 and the widest
+SCAN_FWD_SWEEP_N = (1, 15, 16, 17, 33, 64, 65)
+SCAN_FWD_SWEEP_T = (1, 2, 37, FRAMES)
+SCAN_FWD_SWEEP_H = (8, 20, 33, 64, 96, 100, 112)
+
+
+def check_gru_scan_fwd_sweep(gru_cuda, dev) -> int:
+    """gru_scan_fwd against its plain version: max|hs - plain| within
+    SCAN_TOL, every output finite, two launches bit-equal; N in
+    SCAN_FWD_SWEEP_N and the flagship's rows, T in SCAN_FWD_SWEEP_T, H in
+    SCAN_FWD_SWEEP_H and SCAN_WIDEST_H's; every other case with xproj a
+    strided view of [N, T, 3H] (as gru_forward_v1 passes it). The autograd
+    path at 1 and 2 layers runs in check_gru_scan and
+    check_gru_scan_bwd_sweep. Returns the number of cases."""
+    gen = torch.Generator().manual_seed(SEED + 1)
+    widest = gru_cuda.SCAN_WIDEST_H["forward"]
+    flag = flagship_rows(np.random.default_rng(SEED))
+    hs_all = SCAN_FWD_SWEEP_H + (widest,)
+    cases = [(n, t, h) for h in hs_all for n in SCAN_FWD_SWEEP_N for t in SCAN_FWD_SWEEP_T]
+    cases += [(flag, 2, h) for h in hs_all] + [(flag, FRAMES, h) for h in (HIDDEN, widest)]
+    worst = 0.0
+    t0 = time.perf_counter()
+    for i, (n, t, h) in enumerate(cases):
+        w = gru_weights(gen, h, h, dev)
+        strided = i % 2 == 1
+        xp = torch.randn((n, t, 3 * h) if strided else (t, n, 3 * h), generator=gen) * 0.8
+        xp = xp.to(dev)
+        if strided:
+            xp = xp.transpose(0, 1)
+        got, again = (gru_cuda.gru_scan_fwd(xp, w[2], w[3]) for _ in range(2))
+        want = gru_cuda.gru_scan_fwd_plain(xp, w[2], w[3])
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        stable = torch.equal(got, again)
+        worst = max(worst, err)
+        if not err <= SCAN_TOL or not stable or not torch.isfinite(got).all():
+            raise AssertionError(f"v1 forward sweep: N={n} T={t} H={h} (strided {strided}): "
+                                 f"max|hs - plain| {err:.3e} (tol {SCAN_TOL}), two launches "
+                                 f"bit-equal {stable}")
+        del xp, got, again, want
+    log(f"v1 forward sweep: {len(cases)} cases (N {SCAN_FWD_SWEEP_N} and {flag}, T "
+        f"{SCAN_FWD_SWEEP_T}, H {hs_all}; half with strided xproj) within {SCAN_TOL} of the "
+        f"plain version (worst {worst:.3e}), two launches bit-equal; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return len(cases)
 
 
 def check_gru_scan_bwd_sweep(gru_cuda, dev) -> int:
@@ -3402,6 +3457,121 @@ def check_gather_sweep(mods: dict, dev) -> int:
     return n_cases
 
 
+ONEHOT_SWEEP_TILES = (32, 64, 128, 512)
+ONEHOT_SWEEP_K = (1, 2)
+ONEHOT_SWEEP_D = (1, 4, 40, 100, 128)
+# live slots of the designated rows, in and out alike (so both directions
+# have them); row 0, with none, is also where padding slots point
+ONEHOT_SWEEP_COUNTS = (0, 1, 31, 32, 33, 250)
+ONEHOT_SWEEP_MODES = (("bf16", "default"), ("f32", "default"), ("f32", "highest"))
+
+
+def onehot_sweep_graph(rng) -> tuple[np.ndarray, np.ndarray, dict]:
+    """SWEEP_NODES nodes, SWEEP_DEG random edges a node among the rows not
+    designated, and designated rows (0, then spread out) with exactly
+    ONEHOT_SWEEP_COUNTS in-edges and as many out-edges: {row: count}."""
+    n = SWEEP_NODES
+    rows = {0: 0}
+    for i, c in enumerate(ONEHOT_SWEEP_COUNTS[1:]):
+        rows[97 + 431 * i] = c
+    free = np.setdiff1d(np.arange(n), list(rows))
+    src = [rng.choice(free, n * SWEEP_DEG)]
+    dst = [rng.choice(free, n * SWEEP_DEG)]
+    for r, c in rows.items():
+        src += [rng.choice(free, c), np.full(c, r)]
+        dst += [np.full(c, r), rng.choice(free, c)]
+    return np.concatenate(src), np.concatenate(dst), rows
+
+
+def check_onehot_sweep(mods: dict, dev) -> int:
+    """spmm_onehot against its slot-ordered plain version, bit for bit, and
+    two launches bit-equal: tiles ONEHOT_SWEEP_TILES at k_per_step 1 and
+    2, D in ONEHOT_SWEEP_D, bf16 and f32 x at DEFAULT and f32 at HIGHEST,
+    the forward and reverse mean layouts of onehot_sweep_graph (rows of 0,
+    1, 31, 32, 33 and 250 live slots); the SDDMM backward's layouts
+    (prepare_sddmm's, the structural plan shared through
+    sddmm._with_weight with cotangent weights, a tenth of the live slots 0);
+    the hybrid layout's one-hot (straggler) half. In every case row 0, which
+    no live slot reads and padding slots point at, is infinite, and so is
+    the 33-slot row, which live slots read: the non-finite outputs must
+    fall where the plain version's do, and some must. Returns the number of
+    cases."""
+    tsp, tsd, tsh = mods["spmm"], mods["sddmm"], mods["spmm_hybrid"]
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    src, dst, rows = onehot_sweep_graph(rng)
+    r33 = next(r for r, c in rows.items() if c == 33)
+    n_cases, pad_reads, worst_rows = 0, 0, 0
+
+    def hold(what, lay, n_pad, k=1):
+        nonlocal n_cases, pad_reads, worst_rows
+        row_ptr, _, src_row = tsp.onehot_plan(lay, n_pad)
+        worst_rows = max(worst_rows, int((row_ptr[1:] - row_ptr[:-1]).max()))
+        s_all, _, w_all = tsp.global_edges(lay)
+        pad_reads += int(((w_all == 0) & (s_all == 0)).sum())
+        if bool((src_row == 0).any()):
+            raise AssertionError(f"one-hot sweep: {what}: a live slot reads row 0")
+        for d, (xt, prec) in itertools.product(ONEHOT_SWEEP_D, ONEHOT_SWEEP_MODES):
+            x = torch.randn((n_pad, d), generator=gen, device=dev)
+            x[0] = float("inf")
+            x[r33] = -float("inf")
+            x = x.to(torch.bfloat16 if xt == "bf16" else torch.float32)
+            got, again = (tsp.spmm_onehot(x, lay, precision=prec, k_per_step=k)
+                          for _ in range(2))
+            want = tsp.spmm_onehot_plain(x, lay, precision=prec, k_per_step=k)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(want)
+            same = (torch.equal(fin, torch.isfinite(got)) and torch.equal(got[fin], want[fin])
+                    and torch.equal(got.isnan(), want.isnan()) and
+                    torch.equal(got[~fin & ~want.isnan()], want[~fin & ~want.isnan()]))
+            stable = torch.equal(got.isnan(), again.isnan()) and torch.equal(
+                got.nan_to_num(), again.nan_to_num())
+            if not (same and stable and not bool(fin.all())):
+                err = (got.float() - want.float())[fin].abs().max().item()
+                raise AssertionError(
+                    f"one-hot sweep: {what} D {d} {xt} {prec}: max|err| {err:.3e} where "
+                    f"finite, non-finite positions equal {torch.equal(fin, torch.isfinite(got))}"
+                    f", two launches bit-equal {stable} (must be bit-equal, with some "
+                    f"non-finite outputs)")
+            n_cases += 1
+
+    t0 = time.perf_counter()
+    for tile, k in itertools.product(ONEHOT_SWEEP_TILES, ONEHOT_SWEEP_K):
+        fwd, rev, n_pad = tsp.prepare_mean_aggregate(src, dst, SWEEP_NODES, step_chunks=k,
+                                                     tile=tile, edge_chunk=min(tile, 512))
+        for lay, dn in ((fwd, "forward"), (rev, "reverse")):
+            hold(f"tile {tile} k {k} {dn}", lay.to(dev), n_pad, k)
+    # the SDDMM backward: the structural layouts' plans, then their cotangents
+    sf, sr, n_pad = tsd.prepare_sddmm(src, dst, SWEEP_NODES)
+    for lay, dn in ((sf.to(dev), "forward"), (sr.to(dev), "reverse")):
+        plan = tsp.onehot_plan(lay, n_pad)
+        g = torch.randn(lay.weight.shape, generator=gen, device=dev)
+        g = torch.where((lay.weight != 0) & (torch.rand(g.shape, generator=gen, device=dev)
+                                             >= 0.1), g, 0.0)
+        moved = tsd._with_weight(lay, g)
+        if tsp.onehot_plan(moved, n_pad) is not plan:
+            raise AssertionError("one-hot sweep: _with_weight did not keep the plan")
+        hold(f"SDDMM backward {dn}, cotangent weights", moved, n_pad)
+    hl, n_pad = tsh.prepare_hybrid_mean_aggregate(
+        src, dst, SWEEP_NODES, tile=BANDED_TILE, dense_k=DENSE_K, k_per_step=ONEHOT_K,
+        min_pair_edges=40, dense_dtype=np.int8)
+    if hl.onehot_fwd is None or hl.dense_fwd is None:
+        raise AssertionError("one-hot sweep: the hybrid layout has no one-hot or no dense half")
+    for lay, dn in ((hl.onehot_fwd, "forward"), (hl.onehot_rev, "reverse")):
+        hold(f"hybrid straggler half {dn} (dense_frac {hl.dense_frac:.3f})", lay.to(dev),
+             n_pad, ONEHOT_K)
+    if pad_reads == 0 or worst_rows < max(ONEHOT_SWEEP_COUNTS):
+        raise AssertionError(f"one-hot sweep: {pad_reads} padding slots point at row 0, the "
+                             f"longest row has {worst_rows} live slots")
+    log(f"one-hot sweep: {n_cases} cases (tiles {ONEHOT_SWEEP_TILES}, k_per_step "
+        f"{ONEHOT_SWEEP_K}, D {ONEHOT_SWEEP_D}, {ONEHOT_SWEEP_MODES}, forward and reverse; "
+        f"the SDDMM backward's cotangent weights; the hybrid straggler half; rows of "
+        f"{ONEHOT_SWEEP_COUNTS} live slots, the longest {worst_rows}; {pad_reads} padding "
+        f"slots at the infinite row 0, an infinite row read by 33 live slots) bit-equal to "
+        f"the plain version, two launches bit-equal; {time.perf_counter() - t0:.1f} s")
+    return n_cases
+
+
 def check_dense_sweep(mods: dict, dev) -> int:
     """spmm_dense against its plain version on ragged shapes: tiles 32, 64
     and 128 of a small local graph, D in DENSE_SWEEP_WIDTHS, int8, f32 and
@@ -3517,6 +3687,7 @@ def main() -> int:
     check_gru_widths(gru_cuda, gen, dev)
     check_gru_sweep(gru_cuda, dev)
     check_gru_bwd_sweep(gru_cuda, dev)
+    check_gru_scan_fwd_sweep(gru_cuda, dev)
     check_gru_scan_bwd_sweep(gru_cuda, dev)
     torch.cuda.empty_cache()
 
@@ -3547,6 +3718,7 @@ def main() -> int:
     check_dense_sweep(mods, dev)
     check_int8_sweep(mods, dev)
     check_gather_sweep(mods, dev)
+    check_onehot_sweep(mods, dev)
     resid, pure, n_pad, graph = banded_layouts(mods, dev)
     banded_entries = check_banded_kernels(mods, resid, pure, graph, gen, dev)
     torch.cuda.empty_cache()

@@ -17,14 +17,26 @@
 //
 // Rows of a GRU are independent, so the TPU kernel's sequential T grid axis
 // becomes a loop inside the block and a block owns a tile of rows for all T
-// steps, with W_hh in shared memory in f32 for the whole sequence.
+// steps, with W_hh in shared memory in f32 for the whole sequence. Both
+// kernels run their products h @ W_hh (and the backward's others) on the
+// tensor cores as 3xTF32 (below).
 //
-// Forward: a block of (H, 4) threads owns 32 rows; thread (j, y) keeps unit
-// j of 8 rows in registers, so every W_hh value it reads from shared memory
-// feeds 8 rows and every carry read is a float4 broadcast to the warp. Two
-// barriers a step separate reading the old carry from writing the new one.
-// Its widest H is 128 (its 4H threads' registers); it runs on the FMA
-// units.
+// Forward: a block of 12 warps, one an SM, owns mt m-tiles of 16 rows for
+// the whole sequence: the fewest waves of blocks at the most m-tiles a
+// block holds (5 tasks a warp, and shared memory), then the fewest m-tiles
+// that fill them (N = 19 558, H = 96: 10 m-tiles, 123 blocks on 132 SMs,
+// one wave). A warp takes (m-tile, unit-group pair) tasks, each with the
+// pair's r, z and n columns (6 n-tiles of 8), so the gate math runs on the
+// product's own fragments; its tasks are fixed for the whole sequence, so
+// their carries stay in registers. A step: each task loads its xproj ahead
+// of its product (consumed after it), multiplies the carry tile (A) by
+// W_hh (B) as 3xTF32, applies the gates (the backward's gate functions)
+// and stores hs[t]; then, after a barrier, every warp writes its new
+// carries into the tile, the next step's A; a second barrier. Its products
+// and splits are the backward's recompute, but summed in another order
+// (one accumulator, not two), so the two do not share bits. Its widest H
+// is 128: W_hh, each gate padded to H rounded up to 16, and one 16-row
+// carry tile fill the 227 KB of shared memory.
 //
 // Backward: a persistent grid of 8-warp blocks, one a SM, walks tiles of M
 // rows (32 at H <= 112, 16 at H <= 128, by shared memory).
@@ -57,16 +69,20 @@
 // (W_hh gate-padded, 196.6 KB, and a 16-row tile fill the 227 KB of shared
 // memory).
 //
-// What bounds it on the H100: operations. At N = 19 558 rows, T = 100,
-// H = 96 the forward's h @ W_hh is 2 N T 3H H = 108 GFLOP of f32 products
-// (1.61 ms at 67 TFLOP/s; xproj and hs are 3.0 GB, 0.90 ms at 3.35 TB/s).
+// What bounds it on the H100. At N = 19 558 rows, T = 100, H = 96 the
+// forward's h @ W_hh is 2 N T 3H H = 108 GFLOP of f32 products, 324 GFLOP
+// of TF32 as 3xTF32 (0.65 ms at the 495 TFLOP/s TF32 peak); xproj and hs
+// are 3.0 GB, 0.90 ms at 3.35 TB/s: bytes. Its step is bound by its issue
+// and latencies: for each k-step of 8 a task loads and splits one A and
+// six B fragments for 18 mma.sync, on 3 warps a scheduler; the hardware's
+// exp and division keep the gate math short.
 // The backward's three products are 324 GFLOP, 972 GFLOP of TF32 as
-// 3xTF32: 1.96 ms at the 495 TFLOP/s TF32 peak; its bytes (xproj, hs and g
-// read once, dxproj written) are 6.0 GB, 1.8 ms. This design issues
-// mma.sync well below the instruction's rate: a step's products are short
-// chains of dependent mma.sync on 8 warps, fed by shared-memory loads and
-// register splits, and dW_hh's accumulators leave the rest of the kernel
-// few registers (it spills at H = 96).
+// 3xTF32: 1.96 ms at the TF32 peak; its bytes (xproj, hs and g read once,
+// dxproj written) are 6.0 GB, 1.8 ms. This design issues mma.sync well
+// below the instruction's rate: a step's products are short chains of
+// dependent mma.sync on 8 warps, fed by shared-memory loads and register
+// splits, and dW_hh's accumulators leave the rest of the kernel few
+// registers (it spills at H = 96).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,109 +92,7 @@
 
 namespace {
 
-constexpr int kRowsPerThread = 8;
-constexpr int kFwdGroups = 4;
-constexpr int kFwdRows = kRowsPerThread * kFwdGroups;
-
-__device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-__host__ __device__ inline int pad4(int h) { return (h + 3) & ~3; }
-
-size_t fwd_smem_bytes(int H) {
-  const size_t hp = pad4(H), h3 = 3 * static_cast<size_t>(H);
-  return sizeof(float) * (hp * h3 + kFwdRows * hp + h3);  // W_hh [Hp, 3H], carry, b_hh
-}
-
-// hproj of unit j (columns j, H + j, 2H + j) for kRowsPerThread rows whose
-// carries are hrow(i)[0 .. Hp), from W_hh rows of stride ldw, k ascending in
-// steps of 4 (the pad rows of W_hh and of the carry are zero).
-template <class HRow>
-__device__ __forceinline__ void hidden_proj(const float* __restrict__ w, int ldw, int Hp, int H,
-                                            int j, HRow hrow, float (&ar)[kRowsPerThread],
-                                            float (&az)[kRowsPerThread],
-                                            float (&an)[kRowsPerThread]) {
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) ar[i] = az[i] = an[i] = 0.0f;
-  for (int k = 0; k < Hp; k += 4) {
-    float wr[4], wz[4], wn[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float* wk = w + static_cast<size_t>(k + u) * ldw;
-      wr[u] = wk[j];
-      wz[u] = wk[H + j];
-      wn[u] = wk[2 * H + j];
-    }
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const float4 h4 = hrow(i, k);
-      const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        ar[i] = fmaf(hv[u], wr[u], ar[i]);
-        az[i] = fmaf(hv[u], wz[u], az[i]);
-        an[i] = fmaf(hv[u], wn[u], an[i]);
-      }
-    }
-  }
-}
-
-// xproj [T, B, 3H] with element strides st (frames) and sb (rows), the last
-// dimension contiguous; hs [T, B, H] contiguous.
-__global__ void gru_scan_fwd_kernel(const float* __restrict__ xproj, int64_t st, int64_t sb,
-                                    const float* __restrict__ w_hh,
-                                    const float* __restrict__ b_hh, int T, int B, int H,
-                                    float* __restrict__ hs) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int H3 = 3 * H, Hp = pad4(H);
-  float* w = reinterpret_cast<float*>(smem);  // [Hp, 3H]
-  float* hc = w + static_cast<size_t>(Hp) * H3;  // [rows, Hp]
-  float* bhh = hc + kFwdRows * Hp;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthr = blockDim.x * blockDim.y;
-  const int j = threadIdx.x;
-  const int r0 = threadIdx.y * kRowsPerThread;
-  const int row0 = blockIdx.x * kFwdRows;
-
-  for (int e = tid; e < Hp * H3; e += nthr) w[e] = e < H * H3 ? w_hh[e] : 0.0f;
-  for (int e = tid; e < kFwdRows * Hp; e += nthr) hc[e] = 0.0f;
-  for (int e = tid; e < H3; e += nthr) bhh[e] = b_hh[e];
-  __syncthreads();
-
-  auto hrow = [&](int i, int k) {
-    return *reinterpret_cast<const float4*>(hc + (r0 + i) * Hp + k);
-  };
-  for (int t = 0; t < T; ++t) {
-    float xr[kRowsPerThread], xz[kRowsPerThread], xn[kRowsPerThread];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int row = row0 + r0 + i;
-      const float* xp = xproj + t * st + static_cast<int64_t>(row < B ? row : 0) * sb;
-      xr[i] = row < B ? xp[j] : 0.0f;
-      xz[i] = row < B ? xp[H + j] : 0.0f;
-      xn[i] = row < B ? xp[2 * H + j] : 0.0f;
-    }
-    float ar[kRowsPerThread], az[kRowsPerThread], an[kRowsPerThread];
-    hidden_proj(w, H3, Hp, H, j, hrow, ar, az, an);
-    float hnew[kRowsPerThread];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const float r = sigmoidf_(xr[i] + (ar[i] + bhh[j]));
-      const float z = sigmoidf_(xz[i] + (az[i] + bhh[H + j]));
-      const float n = tanhf(xn[i] + r * (an[i] + bhh[2 * H + j]));
-      hnew[i] = fmaf(1.0f - z, n, z * hc[(r0 + i) * Hp + j]);
-    }
-    __syncthreads();  // every thread has read the old carry
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      hc[(r0 + i) * Hp + j] = hnew[i];
-      const int row = row0 + r0 + i;
-      if (row < B) hs[(static_cast<size_t>(t) * B + row) * H + j] = hnew[i];
-    }
-    __syncthreads();  // the new carry is visible
-  }
-}
-
-// ---------------------------------------------------------------- backward
+// ---------------------------------------------------------------- shapes, 3xTF32
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -294,13 +208,15 @@ __device__ __forceinline__ void mma3x(float (&d)[4], float (&e)[4], const Frag& 
   mma_tf32(e, a.hi, l0, l1);
 }
 
-// the backward's gate functions: exp and division by the hardware's
-// approximations (a few ulp, far inside the contract)
-__device__ __forceinline__ float sigmoid_bwd(float v) {
+// the gate functions of both kernels: exp and division by the hardware's
+// approximations (a few ulp: hs stays within 1e-6 of the plain version at
+// T = 100); tanh as 1 - 2 / (e^2v + 1), not tanh.approx (2^-11, too coarse
+// for the forward's 1e-5)
+__device__ __forceinline__ float sigmoid_g(float v) {
   return __fdividef(1.0f, 1.0f + __expf(-v));
 }
 
-__device__ __forceinline__ float tanh_bwd(float v) {
+__device__ __forceinline__ float tanh_g(float v) {
   return 1.0f - __fdividef(2.0f, __expf(2.0f * v) + 1.0f);
 }
 
@@ -345,6 +261,162 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, int byte
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+
+// ---------------------------------------------------------------- forward
+
+constexpr int kFwdWarps = 12;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int kFwdTasks = 5;  // (m-tile, unit-group pair)s a warp keeps the carry of
+
+// Shared memory of the forward at HG = H rounded up to 16 and mt m-tiles
+// of 16 rows a block: W_hh [HG, LD] (LD = 3 HG rounded up to 32), the
+// carry tile [16 mt, LH] (LH = HG rounded up to 32), b_hh [3 HG]; f32.
+__host__ __device__ constexpr size_t fwd_smem(int hg, int mt) {
+  return sizeof(float) * (static_cast<size_t>(hg) * rup(3 * hg, 32) +
+                          static_cast<size_t>(16 * mt) * rup(hg, 32) + 3 * hg);
+}
+
+// The most m-tiles a block of the forward takes at HG: its warps keep the
+// carries of at most kFwdTasks tasks each, and its tiles fit shared memory.
+__host__ __device__ constexpr int fwd_max_mtiles(int hg) {
+  int mt = kFwdTasks * kFwdWarps / (hg / 16);
+  while (mt > 1 && fwd_smem(hg, mt) > kSmemMax) --mt;
+  return mt;
+}
+
+// xproj [T, B, 3H] with element strides st (frames) and sb (rows), the last
+// dimension contiguous; hs [T, B, H] contiguous. A block owns rows
+// [16 mt blockIdx.x, 16 mt (blockIdx.x + 1)) for all T steps. vec2: H, st
+// and sb even and xproj 8-byte aligned (two columns a load and a store).
+template <int HG>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    gru_scan_fwd_kernel(const float* __restrict__ xproj, int64_t st, int64_t sb,
+                        const float* __restrict__ w_hh, const float* __restrict__ b_hh, int T,
+                        int B, int H, int mt, int vec2, float* __restrict__ hs) {
+  constexpr int LD = rup(3 * HG, 32), LH = rup(HG, 32), NP = HG / 16;
+  extern __shared__ __align__(16) float smem_f[];
+  float* wsm = smem_f;             // W_hh [HG, LD], gate q of unit j at column q HG + j
+  float* hsm = wsm + HG * LD;      // the carry [16 mt, LH]: A of the next step's product
+  float* bsm = hsm + 16 * mt * LH;  // b_hh [3 HG]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int row0 = blockIdx.x * 16 * mt, ntasks = mt * NP;
+
+  for (int e = tid; e < HG * LD; e += kFwdThreads) {
+    const int k = e / LD, c = e - k * LD, q = c / HG, j = c - q * HG;
+    wsm[swz(k & ~7, k & 7, c, LD)] =
+        (k < H && q < 3 && j < H) ? w_hh[static_cast<size_t>(k) * 3 * H + q * H + j] : 0.0f;
+  }
+  for (int e = tid; e < 3 * HG; e += kFwdThreads) {
+    const int q = e / HG, j = e - q * HG;
+    bsm[e] = j < H ? b_hh[q * H + j] : 0.0f;
+  }
+  for (int e = tid; e < 16 * mt * LH; e += kFwdThreads) hsm[e] = 0.0f;  // h_0 = 0
+  __syncthreads();
+
+  // h at the fragment positions of this warp's tasks: task = warp + kFwdWarps i
+  // is m-tile task / NP and unit groups 2 (task % NP) + ug; element f is row
+  // 16 m + gid + 8 (f >> 1), unit 8 u + 2 tig + (f & 1)
+  float carry[kFwdTasks][2][4];
+#pragma unroll
+  for (int i = 0; i < kFwdTasks; ++i)
+#pragma unroll
+    for (int ug = 0; ug < 2; ++ug)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) carry[i][ug][f] = 0.0f;
+
+  for (int t = 0; t < T; ++t) {
+#pragma unroll
+    for (int i = 0; i < kFwdTasks; ++i) {
+      const int task = warp + kFwdWarps * i;
+      if (task >= ntasks) break;
+      const int m = task / NP, u0 = 2 * (task - m * NP);
+      // this step's xproj at the task's positions, loaded ahead of the product
+      float xin[2][2][3][2];  // [ug][row half][gate][column pair]
+#pragma unroll
+      for (int ug = 0; ug < 2; ++ug)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = row0 + 16 * m + gid + 8 * hf, j = 8 * (u0 + ug) + 2 * tig;
+          const float* xp = xproj + t * st + static_cast<int64_t>(row < B ? row : 0) * sb + j;
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            if (vec2 && row < B && j < H) {
+              const float2 v = *reinterpret_cast<const float2*>(xp + q * H);
+              xin[ug][hf][q][0] = v.x;
+              xin[ug][hf][q][1] = v.y;
+            } else {
+              xin[ug][hf][q][0] = row < B && j < H ? xp[q * H] : 0.0f;
+              xin[ug][hf][q][1] = row < B && j + 1 < H ? xp[q * H + 1] : 0.0f;
+            }
+          }
+        }
+      // hproj = h @ W_hh for the task's two unit groups, gates r, z, n
+      float acc[2][3][4];
+#pragma unroll
+      for (int ug = 0; ug < 2; ++ug)
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+#pragma unroll
+          for (int f = 0; f < 4; ++f) acc[ug][q][f] = 0.0f;
+#pragma unroll 2
+      for (int k0 = 0; k0 < HG; k0 += 8) {
+        Frag a;
+        load_a(hsm, LH, 16 * m, k0, gid, tig, a);
+#pragma unroll
+        for (int ug = 0; ug < 2; ++ug)
+#pragma unroll
+          for (int q = 0; q < 3; ++q) {
+            const int n = q * HG + 8 * (u0 + ug) + gid;
+            mma3(acc[ug][q], a, wsm[swz(k0, tig, n, LD)], wsm[swz(k0, tig + 4, n, LD)]);
+          }
+      }
+      // the gates on the product's fragments; the new h into the carry and hs[t]
+#pragma unroll
+      for (int ug = 0; ug < 2; ++ug)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int row = row0 + 16 * m + gid + 8 * hf, j = 8 * (u0 + ug) + 2 * tig;
+          float hn[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int f = 2 * hf + c;
+            const float r = sigmoid_g(xin[ug][hf][0][c] + (acc[ug][0][f] + bsm[j + c]));
+            const float z = sigmoid_g(xin[ug][hf][1][c] + (acc[ug][1][f] + bsm[HG + j + c]));
+            const float n =
+                tanh_g(xin[ug][hf][2][c] + r * (acc[ug][2][f] + bsm[2 * HG + j + c]));
+            hn[c] = row < B && j + c < H ? fmaf(1.0f - z, n, z * carry[i][ug][f]) : 0.0f;
+            carry[i][ug][f] = hn[c];
+          }
+          float* out = hs + (static_cast<size_t>(t) * B + row) * H + j;
+          if (row < B && j < H) {
+            if (vec2) {
+              *reinterpret_cast<float2*>(out) = make_float2(hn[0], hn[1]);
+            } else {
+              out[0] = hn[0];
+              if (j + 1 < H) out[1] = hn[1];
+            }
+          }
+        }
+    }
+    __syncthreads();  // every warp has read the old carry tile
+#pragma unroll
+    for (int i = 0; i < kFwdTasks; ++i) {
+      const int task = warp + kFwdWarps * i;
+      if (task >= ntasks) break;
+      const int m = task / NP, u0 = 2 * (task - m * NP);
+#pragma unroll
+      for (int ug = 0; ug < 2; ++ug)
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          hsm[swz(16 * m + 8 * (f >> 1), gid, 8 * (u0 + ug) + 2 * tig + (f & 1), LH)] =
+              carry[i][ug][f];
+    }
+    __syncthreads();  // the new carry is the next step's A
+  }
+}
+
+// ---------------------------------------------------------------- backward
 
 // g [T, B, H] with element strides gt, gb (last dimension contiguous);
 // dxproj [T, B, 3H] contiguous; partial [gridDim.x, H + 1, 3H] (rows [0, H)
@@ -470,9 +542,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int row = row0 + r8 + gid;
             const bool ok = row < B && j < H;
             const float hn = acc[2][f] + bsm[2 * HG + j];
-            const float rr = sigmoid_bwd(xin[f][0] + (acc[0][f] + bsm[j]));
-            const float z = sigmoid_bwd(xin[f][1] + (acc[1][f] + bsm[HG + j]));
-            const float n = tanh_bwd(xin[f][2] + rr * hn);
+            const float rr = sigmoid_g(xin[f][0] + (acc[0][f] + bsm[j]));
+            const float z = sigmoid_g(xin[f][1] + (acc[1][f] + bsm[HG + j]));
+            const float n = tanh_g(xin[f][2] + rr * hn);
             const float d = dh[i][f] + xin[f][3];
             const float hprev = hsm[swz(r8, gid, j, LH)];
             const float dn_pre = d * (1.0f - z) * (1.0f - n * n);
@@ -623,20 +695,32 @@ int by_width(int H, F f) {
 extern "C" int gru_scan_fwd_launch(const void* xproj, int64_t st, int64_t sb, const void* w_hh,
                                    const void* b_hh, int T, int B, int H, void* hs,
                                    void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || H * kFwdGroups > 1024) return SLDM_ERR_SHAPE;
-  const size_t smem = fwd_smem_bytes(H);
-  const int code = opt_in(gru_scan_fwd_kernel, smem);
-  if (code != 0) return code;
-  // 4H threads of this kernel's registers must fit one SM (H <= 128 on an H100)
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, gru_scan_fwd_kernel);
+  if (T <= 0 || B <= 0 || H <= 0) return SLDM_ERR_SHAPE;
+  if (H > kWidestH) return SLDM_ERR_SMEM;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (H * kFwdGroups > attr.maxThreadsPerBlock) return SLDM_ERR_SMEM;
-  const dim3 grid((B + kFwdRows - 1) / kFwdRows);
-  gru_scan_fwd_kernel<<<grid, dim3(H, kFwdGroups), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xproj), st, sb, static_cast<const float*>(w_hh),
-      static_cast<const float*>(b_hh), T, B, H, static_cast<float*>(hs));
-  return cudaGetLastError();
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int vec2 = H % 2 == 0 && st % 2 == 0 && sb % 2 == 0 &&
+                   reinterpret_cast<uintptr_t>(xproj) % 8 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return by_width(H, [&](auto hg) {
+    constexpr int HG = decltype(hg)::value;
+    // the fewest waves of one block an SM at the most m-tiles a block holds,
+    // then the fewest m-tiles a block that fill those waves
+    const int mtiles = cdiv(B, 16), slots = sms > 0 ? sms : 1;
+    const int waves = cdiv(mtiles, fwd_max_mtiles(HG) * slots);
+    const int mt = cdiv(mtiles, waves * slots);
+    const size_t smem = fwd_smem(HG, mt);
+    auto kernel = gru_scan_fwd_kernel<HG>;
+    const int code = opt_in(kernel, smem);
+    if (code != 0) return code;
+    kernel<<<cdiv(mtiles, mt), kFwdThreads, smem, s>>>(
+        static_cast<const float*>(xproj), st, sb, static_cast<const float*>(w_hh),
+        static_cast<const float*>(b_hh), T, B, H, mt, vec2, static_cast<float*>(hs));
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // The backward's row tile at width H (bwd_rows), 0 where H is wider than

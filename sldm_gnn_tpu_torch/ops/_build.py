@@ -185,7 +185,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         i, f, p, p, p, p, p,           # has_act, slope, dyu, dyo, stats, dstats, stream
     ]
     lib.spmm_onehot_launch.argtypes = [
-        p, p, p, p, p, i, i, i,   # row_ptr, perm, block_meta, src_local, weight, ec, tile, rows
+        p, p, p, p, i,            # row_ptr, perm, src_row, weight, rows
         p, i, i, i, p, p,         # x, x_bf16, D, round, out, stream
     ]
     lib.spmm_dense_launch.argtypes = [

@@ -503,10 +503,10 @@ def gru_last_forward(params: GRUParams, x: torch.Tensor, *,
 
 # ------------------------------------------------------------ the v1 scan (f32)
 
-# The widest H each v1 kernel takes on an H100: the forward's 4H threads
-# and their registers must fit one SM (128); the backward's f32 W_hh, each
-# gate padded to H rounded up to 16, and its narrowest row tile (16 rows)
-# one block's 227 KB of shared memory (128); chip_smoke.py probes both.
+# The widest H each v1 kernel takes on an H100: its f32 W_hh, each gate
+# padded to H rounded up to 16, and its narrowest tile of 16 rows (the
+# forward's carry; the backward's hprev and dhp) must fit one block's 227
+# KB of shared memory (128 both); chip_smoke.py probes both.
 SCAN_WIDEST_H = {"forward": 128, "backward": 128}
 
 

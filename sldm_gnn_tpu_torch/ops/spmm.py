@@ -77,33 +77,60 @@ def _check_call(x: torch.Tensor, blocked: BlockedEdges, precision: str, k_per_st
 
 def spmm_onehot_plain(x: torch.Tensor, blocked: BlockedEdges, *, precision: str = "default",
                       k_per_step: int = 1) -> torch.Tensor:
-    """Plain PyTorch version of ``csrc/spmm_onehot.cu``: the products of
-    the TPU kernel's precision summed in f32, the result at x's dtype."""
+    """Plain PyTorch version of ``csrc/spmm_onehot.cu``: for every row, its
+    live slots' products (the TPU kernel's precision) added in slot order
+    from 0, in f32, the result at x's dtype. It walks the rows' live slots
+    by position over :func:`onehot_plan`, each step one f32 multiply and
+    one f32 add, as the kernel does, so the two agree bit for bit; padding
+    slots never read x."""
     _check_call(x, blocked, precision, k_per_step)
-    src, dst, w = global_edges(blocked)
-    xs = x.float()
+    n, d = x.shape
+    row_ptr, perm, src_row = onehot_plan(blocked, n)
+    w = blocked.weight.reshape(-1).float()[perm.long()]
     if precision == "default":
-        xs, w = bf16r(xs), bf16r(w)
-    out = xs.new_zeros(x.shape).index_add_(0, dst, xs[src] * w[:, None])
+        w = bf16r(w)
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    # rows by falling slot count: the rows live at position j are a prefix
+    order = torch.argsort(counts, descending=True, stable=True)
+    start = row_ptr[:-1].long()[order]
+    by_count = counts[order].cpu()
+    longest = int(by_count[0]) if n else 0
+    live_at = torch.searchsorted(-by_count, -torch.arange(longest), side="left").tolist()
+    acc = x.new_zeros((n, d), dtype=torch.float32)
+    for j, k in enumerate(live_at):
+        e = start[:k] + j
+        xj = x[src_row[e].long()].float()
+        if precision == "default":
+            xj = bf16r(xj)
+        acc[:k] = acc[:k] + w[e][:, None] * xj
+    out = torch.empty_like(acc)
+    out[order] = acc
     return out.to(x.dtype)
 
 
-def onehot_plan(blocked: BlockedEdges, n_rows: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(row_ptr [n_rows + 1], perm)`` int32: the live slots (weight != 0)
-    of every destination row, in slot order. Derived once per layout, on
-    its device, and kept on the layout object."""
+def onehot_plan(blocked: BlockedEdges,
+                n_rows: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(row_ptr [n_rows + 1], perm, src_row)`` int32: the live slots
+    (weight != 0) of every destination row in slot order, and each live
+    slot's global source row. Structure only, no weight: derived once per
+    layout, on its device, and kept on the layout object, where a layout
+    with other weights on the same structure may share it
+    (``sddmm._with_weight``)."""
     cached = blocked.__dict__.get("_onehot_plan")
     if cached is not None and cached[0] == n_rows:
         return cached[1]
-    _, rows, w = global_edges(blocked)
+    src, rows, w = global_edges(blocked)
     live = torch.nonzero(w != 0).flatten()
     key = rows[live]
     if key.numel() and int(key.max()) >= n_rows:
         raise ValueError(f"the layout has destination rows past x's {n_rows} rows")
-    perm = live[torch.argsort(key, stable=True)].to(torch.int32)
+    perm = live[torch.argsort(key, stable=True)]
+    src_row = src[perm]
+    if src_row.numel() and int(src_row.max()) >= n_rows:
+        raise ValueError(f"the layout has source rows past x's {n_rows} rows")
     row_ptr = torch.zeros(n_rows + 1, dtype=torch.int32, device=w.device)
     row_ptr[1:] = torch.cumsum(torch.bincount(key, minlength=n_rows), 0)
-    plan = (row_ptr, perm.contiguous())
+    plan = (row_ptr, perm.to(torch.int32).contiguous(), src_row.to(torch.int32).contiguous())
     object.__setattr__(blocked, "_onehot_plan", (n_rows, plan))
     return plan
 
@@ -125,9 +152,7 @@ def spmm_onehot(x: torch.Tensor, blocked: BlockedEdges, *, precision: str = "def
     n, d = x.shape
     if d > 128:
         raise ValueError(f"spmm_onehot: feature width {d} > 128 is not taken")
-    row_ptr, perm = onehot_plan(blocked, n)
-    meta = blocked.block_meta.to(torch.int32).contiguous()
-    src_local = blocked.src_local.to(torch.int32).contiguous()
+    row_ptr, perm, src_row = onehot_plan(blocked, n)
     weight = blocked.weight.float().contiguous()
     out = torch.empty_like(x)
     from . import _build
@@ -135,9 +160,8 @@ def spmm_onehot(x: torch.Tensor, blocked: BlockedEdges, *, precision: str = "def
     lib = _build.load()
     with torch.cuda.device(x.device):
         code = lib.spmm_onehot_launch(
-            row_ptr.data_ptr(), perm.data_ptr(), meta.data_ptr(), src_local.data_ptr(),
-            weight.data_ptr(), blocked.edge_chunk, blocked.tile, n, x.data_ptr(),
-            int(x.dtype == BF16), d, int(precision == "default"), out.data_ptr(),
+            row_ptr.data_ptr(), perm.data_ptr(), src_row.data_ptr(), weight.data_ptr(), n,
+            x.data_ptr(), int(x.dtype == BF16), d, int(precision == "default"), out.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, f"spmm_onehot kernel (rows={n}, D={d})")
     spmm_onehot.launches += 1
@@ -198,7 +222,7 @@ def _int8_launch(name, xq, scales, blocked, per_row, k_per_step, out_dtype):
     n, d = xq.shape
     if d > 128:
         raise ValueError(f"{name}: feature width {d} > 128 is not taken")
-    row_ptr, perm = onehot_plan(blocked, n)
+    row_ptr, perm, _ = onehot_plan(blocked, n)
     meta = blocked.block_meta.to(torch.int32).contiguous()
     src_local = blocked.src_local.to(torch.int32).contiguous()
     weight = blocked.weight.float().contiguous()

@@ -146,16 +146,23 @@ def _bwd_smem(h, rows):
     return 4 * (hg * ld + rows * (ld + lh) + 3 * hg)
 
 
+def _fwd_smem(h, mtiles):
+    """csrc/gru_scan.cu's fwd_smem(HG, mt): W_hh with each gate padded to
+    HG = H rounded up to 16, in rows of LD = 3 HG rounded up to 32; the
+    carry tile [16 mt, LH = HG rounded up to 32], b_hh [3 HG]; f32."""
+    hg = _rup(h, 16)
+    return 4 * (hg * _rup(3 * hg, 32) + 16 * mtiles * _rup(hg, 32) + 3 * hg)
+
+
 def test_scan_widest_h_within_the_shared_memory_formula():
     """SCAN_WIDEST_H against the shared memory of csrc/gru_scan.cu
-    (fwd_smem_bytes / bwd_smem) and the H100's 232 448-byte opt-in:
-    the backward is the widest H whose narrowest row tile (16 rows) fits,
-    and not below the 123 of its first design; the forward, capped lower by
-    its 4H threads' registers (measured on the card), fits."""
+    (fwd_smem / bwd_smem) and the H100's 232 448-byte opt-in: each
+    kernel's widest H is the widest whose narrowest block fits (the
+    forward's one m-tile of 16 rows, the backward's 16-row tile), and
+    neither is below its first design's (forward 128, backward 123)."""
     limit = 232448
-    pad4 = lambda h: (h + 3) & ~3
-    fwd = lambda h: 4 * (pad4(h) * 3 * h + 32 * pad4(h) + 3 * h)
-    h = gru_cuda.SCAN_WIDEST_H["backward"]
-    assert _bwd_smem(h, 16) <= limit < _bwd_smem(h + 1, 16)
-    assert h >= 123
-    assert fwd(gru_cuda.SCAN_WIDEST_H["forward"]) <= limit
+    for kind, smem, rows, first in (("forward", _fwd_smem, 1, 128),
+                                    ("backward", _bwd_smem, 16, 123)):
+        h = gru_cuda.SCAN_WIDEST_H[kind]
+        assert smem(h, rows) <= limit < smem(h + 1, rows)
+        assert h >= first

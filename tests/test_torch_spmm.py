@@ -138,8 +138,8 @@ def test_empty_dst_blocks_come_out_zero(rng):
                                         precision=jax.lax.Precision.HIGHEST))
     np.testing.assert_array_equal(got[128:], 0.0)
     assert _max_rel(got, want) < KERNEL_REL
-    plan_ptr, perm = tspmm.onehot_plan(tb, n_pad)
-    assert plan_ptr[-1].item() == perm.numel() == 50
+    plan_ptr, perm, src_row = tspmm.onehot_plan(tb, n_pad)
+    assert plan_ptr[-1].item() == perm.numel() == src_row.numel() == 50
     assert (plan_ptr[129:] == 50).all()
 
 
@@ -206,6 +206,119 @@ def test_kernel_path_grad_matches_pallas_vjp(rng):
     want = jspmm.spmm_pallas(jnp.asarray(t), jax.tree.map(jnp.asarray, jr), n_pad,
                              interpret=True, k_per_step=2)
     assert _max_rel(xt.grad.numpy(), want) < KERNEL_REL
+
+
+# ------------------------------------------------------------ the slot-ordered plain version
+
+
+def _ragged_case(rng, tile=128, zero_frac=0.0):
+    """A one-hot layout with empty rows (no edge lands on rows 600 on), a
+    row of 40 live slots (past a warp's 32) and one of 230, the rest
+    random; a `zero_frac` share of the edges weighs 0 (padding-like slots
+    that are not live)."""
+    n, e = 700, 3000
+    dst = np.concatenate([rng.integers(0, 600, e), np.full(40, 5), np.full(230, 300)])
+    src = rng.integers(0, n, len(dst))
+    w = (rng.random(len(dst)) + 0.1).astype(np.float32)
+    w[rng.random(len(dst)) < zero_frac] = 0.0
+    n_pad = tcsr.pad_nodes(n, tile)
+    kw = dict(weight=w, tile=tile, edge_chunk=64, step_chunks=2)
+    tb, jb = tcsr.block_edges(src, dst, n_pad, **kw), jcsr.block_edges(src, dst, n_pad, **kw)
+    return tb, jb, n_pad
+
+
+def _index_add_sum(x, blocked, precision):
+    """The plain version before it summed in slot order: every slot's
+    product scattered by index_add_ (on the CPU, in slot order too)."""
+    src, dst, w = tspmm.global_edges(blocked)
+    xs = x.float()
+    if precision == "default":
+        xs, w = tspmm.bf16r(xs), tspmm.bf16r(w)
+    return xs.new_zeros(x.shape).index_add_(0, dst, xs[src] * w[:, None]).to(x.dtype)
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+@pytest.mark.parametrize("d", [1, 40])
+def test_slot_ordered_plain_matches_pallas_on_ragged_rows(rng, precision, d):
+    tb, jb, n_pad = _ragged_case(rng)
+    counts = torch.bincount(tspmm.global_edges(tb)[1][tb.weight.reshape(-1) != 0],
+                            minlength=n_pad)
+    assert counts[5] == counts.max() - 190 and counts[300] > 200 and (counts[600:] == 0).all()
+    x = rng.standard_normal((n_pad, d)).astype(np.float32)
+    jp = jax.lax.Precision.HIGHEST if precision == "highest" else jax.lax.Precision.DEFAULT
+    want = jspmm.spmm_pallas(jnp.asarray(x), jax.tree.map(jnp.asarray, jb), n_pad,
+                             interpret=True, precision=jp, k_per_step=2)
+    got = tspmm.spmm_onehot_plain(torch.from_numpy(x), tb, precision=precision, k_per_step=2)
+    np.testing.assert_array_equal(got[600:].numpy(), 0.0)
+    assert _max_rel(got.numpy(), want) < KERNEL_REL
+
+
+@pytest.mark.parametrize("precision,dtype", [("default", torch.float32),
+                                             ("default", torch.bfloat16),
+                                             ("highest", torch.float32)])
+def test_slot_ordered_plain_is_bit_equal_to_index_add(rng, precision, dtype):
+    tb, _, n_pad = _ragged_case(rng, zero_frac=0.2)
+    x = torch.from_numpy(rng.standard_normal((n_pad, 40)).astype(np.float32)).to(dtype)
+    got = tspmm.spmm_onehot_plain(x, tb, precision=precision)
+    assert got.dtype == dtype
+    assert torch.equal(got, _index_add_sum(x, tb, precision))
+
+
+def test_plain_reads_x_only_at_live_slots(rng):
+    """An infinite x row gives non-finite sums only on the rows whose live
+    slots read it; the zero-weight slots that point at it do not."""
+    tb, _, n_pad = _ragged_case(rng, zero_frac=0.2)
+    src, dst, w = tspmm.global_edges(tb)
+    bad = int(src[w == 0][0])
+    x = torch.from_numpy(rng.standard_normal((n_pad, 8)).astype(np.float32))
+    x[bad] = float("inf")
+    got = tspmm.spmm_onehot_plain(x, tb, precision="highest")
+    reads = torch.zeros(n_pad, dtype=torch.bool)
+    reads[dst[(w != 0) & (src == bad)]] = True
+    assert torch.equal(~torch.isfinite(got).all(1), reads)
+
+
+def test_plan_src_rows_equal_a_numpy_reference(rng):
+    tb, _, n_pad = _ragged_case(rng, tile=64, zero_frac=0.2)
+    row_ptr, perm, src_row = tspmm.onehot_plan(tb, n_pad)
+    assert row_ptr.dtype == perm.dtype == src_row.dtype == torch.int32
+    meta, w = tb.block_meta.numpy(), tb.weight.numpy()
+    src = (meta[:, 1:2] * tb.tile + tb.src_local.numpy()).reshape(-1)
+    dst = (meta[:, 0:1] * tb.tile + tb.dst_local.numpy()).reshape(-1)
+    live = np.nonzero(w.reshape(-1) != 0)[0]
+    order = live[np.argsort(dst[live], kind="stable")]
+    np.testing.assert_array_equal(perm.numpy(), order)
+    np.testing.assert_array_equal(src_row.numpy(), src[order])
+    np.testing.assert_array_equal(row_ptr.numpy(),
+                                  np.concatenate([[0], np.cumsum(np.bincount(dst[live],
+                                                                             minlength=n_pad))]))
+
+
+def test_plan_carries_no_weight(rng):
+    """The plan of the structural layout, shared through sddmm._with_weight
+    with other weights (some live slots 0), gives each weight set's own
+    sums: those of the JAX kernel on the same weights."""
+    from sldm_gnn_tpu.ops import sddmm as jsd
+    from sldm_gnn_tpu_torch.ops import sddmm as tsd
+
+    n = 300
+    src, dst = rng.integers(0, n, 2000), rng.integers(0, n, 2000)
+    tf, _, n_pad = tsd.prepare_sddmm(src, dst, n)
+    jf, _, _ = jsd.prepare_sddmm(src, dst, n)
+    plan = tspmm.onehot_plan(tf, n_pad)
+    x = rng.standard_normal((n_pad, 16)).astype(np.float32)
+    for _ in range(2):
+        g = rng.standard_normal(tf.weight.shape).astype(np.float32)
+        g[rng.random(g.shape) < 0.1] = 0.0
+        g = np.where(tf.weight.numpy() != 0, g, 0.0).astype(np.float32)
+        moved = tsd._with_weight(tf, torch.from_numpy(g))
+        got = tspmm.spmm_onehot_plain(torch.from_numpy(x), moved, precision="highest")
+        assert tspmm.onehot_plan(moved, n_pad) is plan
+        want = jspmm.spmm_pallas(jnp.asarray(x), jax.tree.map(jnp.asarray,
+                                                               jsd._with_weight(jf, g)),
+                                 n_pad, interpret=True, precision=jax.lax.Precision.HIGHEST)
+        assert _max_rel(got.numpy(), want) < KERNEL_REL
+        assert torch.equal(got, _index_add_sum(torch.from_numpy(x), moved, "highest"))
 
 
 def test_layout_moves_and_keeps_its_fields(rng):
